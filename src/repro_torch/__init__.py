@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the JAX package ``repro``, for one NVIDIA H100.
+
+Mirrors ``src/repro/``'s layout and names module for module.  It imports
+torch and numpy only — never JAX, and nothing of ``repro``.  Ported so
+far: paged serving of dense decoders (``serving.ContinuousBatcher`` with
+``cache_layout="paged"``), with paged attention in a hand-written CUDA
+kernel (``kernels/paged_attention``).  Entry points take ``device=`` and
+default to ``"cuda"``; the CPU runs only when the caller asks for it.
+"""
