@@ -5,11 +5,13 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-1. build every CUDA kernel of the main path from the sources in this
-   checkout (nvcc, sm_90a);
+1. build every CUDA kernel of the main paths from the sources in this
+   checkout (nvcc, sm_90a; one nvcc process per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: paged attention for a decode tick (S=1), a prefill
-   block (S=16), a wrapped ring and null-page padding;
+   main paths' shapes: paged attention for a decode tick (S=1), a prefill
+   block (S=16), a wrapped ring and null-page padding; the GreedyTL Gram
+   and scores kernels at the HAPT shapes, a ragged case and a case with
+   many selected columns;
 3. serve full-width qwen3_0_6b (28 layers, random bf16 weights from a
    seed, fp32 page pool) through ContinuousBatcher with the paged layout,
    lazy allocation and kernel="cuda": greedy and sampled requests, one
@@ -19,7 +21,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    require completions_equivalent (the repo's margin-tolerant token
    parity), finite margins and logprobs, and in-vocabulary tokens;
 5. time each kernel, its plain version and one PyTorch library call at
-   the decode shape, beside its bound (bytes over the card's memory rate).
+   the decode shape, beside its bound (bytes over the card's memory rate);
+6. run the paper's learning framework at the full HAPT size
+   (``run_scenario("hapt")``: Cloud, GTL steps 0/2/4, noHTL; d=561, k=12,
+   L=21, N=10929, kappa=64, 600 SVM steps) with kernel="cuda" (launch
+   counts from 0, and no call of a plain version allowed) and then
+   kernel="torch"; require equal GreedyTL selections (a first divergence
+   only at a tie of the top two scores) and agreeing F-measures; print the
+   F rows beside Cloud and the overhead report; time both kernels by
+   CUDA-graph replay, and each route's wall-clock with a stage breakdown
+   and the device's busy share from a torch.profiler trace.
 
 Prints the card's name and power limit, a JSON line of kernels, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -39,6 +50,25 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TOL = 1e-2  # bf16 output: one ulp below 2.0 is 7.8e-3; fp32 sum order
+
+# GreedyTL at the paper's HAPT size (src/repro/data/synth.py HAPT_LIKE):
+# B = L*k = 21*12 problems of m = 365 rows (partition_uniform's m_max over
+# 7650 training rows) and n = 561 + 1 + 21 = 583 design columns.
+HAPT_B, HAPT_M, HAPT_N = 252, 365, 583
+# Gram of a unit-scale design (Z / sqrt(m), so G is O(1) as GreedyTL's
+# G = Z^T Z / m is): two fp32 sums of m products in different orders differ
+# by about sqrt(m) * 6e-8 = 1.1e-6 at m = 365; 1e-5 leaves room for the tail.
+GRAM_TOL = 1e-5
+# Scores: one IEEE multiply, add and divide on both sides, so at most an
+# ulp apart (2.4e-7 relative), and in practice bit-equal.
+SCORES_RTOL = 2.4e-7
+# The two routes' G differ only by fp32 summation order (about 1e-6
+# relative, above); through a ridge solve with lam = 3 (condition number of
+# G_SS / m + lam I at most a few tens here) that moves a score by a few
+# 1e-5 relative.  A first divergence of the selections counts as a tie when
+# the two picks' scores lie within 1e-4 of the step's top score, relatively,
+# under both routes' statistics.
+TIE_RTOL = 1e-4
 
 
 def card_line() -> str:
@@ -204,8 +234,356 @@ def bound_ms(B, S, H, KV, hd, psz, lasts, q_bytes, pool_bytes, P):
             + 2 * entries * KV * hd * pool_bytes          # K/V read
             + B * P * 4 + B * S * 4 + B * 4)              # table, positions
     flops = 4 * hd * rows * KV * entries
+    return roofline_ms(byts, flops)
+
+
+def roofline_ms(byts, flops):
+    """(the larger of bytes over the HBM rate and fp32 flops over the fp32
+    peak, in ms; which of the two it is)."""
     t_b, t_f = byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def gram_bound_ms(B, m, n):
+    """Least time for B Gram matrices: G is symmetric, so n(n+1)/2 sums of
+    m fused multiply-adds each (B*m*n*(n+1) fp32 flops on the CUDA cores),
+    or Z read once and G written once over the HBM rate."""
+    return roofline_ms(4 * B * (m * n + n * n), B * m * n * (n + 1))
+
+
+def scores_bound_ms(B, n):
+    """Least time for one scoring pass: corr, diag (fp32) and the bool mask
+    read once, scores (fp32) and the indices (int32) written once; 3 flops
+    per column."""
+    return roofline_ms(B * n * (4 + 4 + 1 + 4) + 4 * B, 3 * B * n)
+
+
+def check_gram(gops, gref, gen, cases):
+    """Gram kernel vs plain version on unit-scale designs: within GRAM_TOL,
+    finite, and bit-symmetric.  Returns the max abs error."""
+    import torch
+    worst = 0.0
+    for B, m, n in cases:
+        Z = torch.randn(B, m, n, generator=gen, device="cuda") / m ** 0.5
+        G = gops.gram(Z)
+        want = gref.reference_gram(Z)
+        torch.cuda.synchronize()
+        err = (G - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        sym = torch.equal(G, G.mT)
+        print(f"gram (B={B}, m={m}, n={n}): max_abs_err={err:.3g} "
+              f"max_rel_err={rel:.3g} (tol {GRAM_TOL}) bit-symmetric={sym}")
+        if not (err <= GRAM_TOL and sym and torch.isfinite(G).all()):
+            raise AssertionError(f"gram (B={B}, m={m}, n={n}): kernel "
+                                 f"disagrees with its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def check_scores(gops, gref, gen, cases, lam=3.0):
+    """Scores kernel vs plain version: scores within SCORES_RTOL and the
+    argmax indices equal, except where the plain version's scores at the
+    two indices are equal (a tie); a planted tie must go to the lowest
+    index.  Returns the max abs error of the unselected scores."""
+    import torch
+    worst = 0.0
+    for name, B, n, p_sel, tie in cases:
+        corr = torch.randn(B, n, generator=gen, device="cuda")
+        diag = torch.rand(B, n, generator=gen, device="cuda") + 0.05
+        sel = torch.rand(B, n, generator=gen, device="cuda") < p_sel
+        if tie:  # columns 7 and n - 3: the same, largest, unselected score
+            corr[:, [7, n - 3]] = 1e3
+            diag[:, [7, n - 3]] = 1.0
+            sel[:, [7, n - 3]] = False
+        s, idx = gops.scores_argmax(corr, diag, sel, lam)
+        want, widx = gref.reference_scores(corr, diag, sel, lam)
+        torch.cuda.synchronize()
+        err = (s - want).abs().max().item()
+        close = torch.allclose(s, want, rtol=SCORES_RTOL, atol=0)
+        differ = idx != widx
+        at_tie = want.gather(1, idx.long()[:, None]) \
+            == want.gather(1, widx.long()[:, None])
+        bad = int((differ & ~at_tie[:, 0]).sum())
+        planted = not tie or bool((idx == 7).all())
+        print(f"scores_argmax {name} (B={B}, n={n}, selected "
+              f"{float(sel.float().mean()):.2f}): max_abs_err={err:.3g} "
+              f"(rtol {SCORES_RTOL}) bit-equal={torch.equal(s, want)} "
+              f"argmax differs in {int(differ.sum())} rows, {bad} not at a "
+              f"tie; planted tie -> lowest index: {planted}")
+        if not (close and bad == 0 and planted):
+            raise AssertionError(f"scores_argmax {name}: kernel disagrees "
+                                 f"with its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def step_scores(G, c, prefix, lam):
+    """GreedyTL's candidate scores for one problem after the picks in
+    `prefix` (plain arithmetic, written out here): ridge re-fit on the
+    picked columns, residual correlation, corr^2 / (G_jj + lam), picked
+    columns at -inf."""
+    import torch
+    S = torch.as_tensor(prefix, dtype=torch.long, device=G.device)
+    r = c
+    if len(S):
+        w = torch.linalg.solve(
+            G[S][:, S] + lam * torch.eye(len(S), device=G.device), c[S])
+        r = c - G[:, S] @ w
+    s = r * r / (torch.diagonal(G) + lam)
+    s[S] = -float("inf")
+    return s
+
+
+def check_selections(res_c, res_t, lam):
+    """Selections of the two routes equal, or, where a problem's picks
+    first differ, both picks within TIE_RTOL of the step's top score under
+    both routes' statistics.  Returns the number of problems that
+    diverged."""
+    import numpy as np
+    import torch
+    from repro_torch.core import base_learner as bl
+    from repro_torch.core import greedytl, gtl
+    from repro_torch.core.experiment import make_scenario
+    sel_c = res_c.gtl.gtl_selected.cpu().numpy()
+    sel_t = res_t.gtl.gtl_selected.cpu().numpy()
+    diverged = np.argwhere((sel_c != sel_t).any(-1))
+    same_base = bool(torch.equal(res_c.gtl.base.W, res_t.gtl.base.W))
+    print(f"GreedyTL selections: {sel_c.shape[0] * sel_c.shape[1]} problems "
+          f"x {sel_c.shape[2]} picks; {len(diverged)} differ between the "
+          f"routes; base models bit-equal: {same_base}")
+    if not len(diverged):
+        return 0
+    shards, _, _ = make_scenario("hapt", 0, device="cuda")
+    base = res_t.gtl.base
+    k = base.W.shape[1]
+    for l, cls in diverged:
+        t = int(np.argmax(sel_c[l, cls] != sel_t[l, cls]))
+        picks = (int(sel_c[l, cls, t]), int(sel_t[l, cls, t]))
+        X = torch.as_tensor(shards.X[l], device="cuda")
+        mask = torch.as_tensor(shards.mask[l], device="cuda")
+        y = bl.onehot_pm(torch.as_tensor(shards.y[l], device="cuda"),
+                         k)[cls] * mask
+        H = gtl.source_margins(X, base)[cls]
+        Z, _ = greedytl.build_design(X, H, mask)
+        gaps = []
+        for route in ("cuda", "torch"):
+            G, c = greedytl.gram_stats(Z[None], y[None], mask[None],
+                                       kernel=route)
+            s = step_scores(G[0], c[0], sel_t[l, cls, :t], lam)
+            top = s.max()
+            gaps += [((top - s[j]) / top).item() for j in picks]
+        print(f"  location {l} class {cls}: first differs at pick {t} "
+              f"(cuda {picks[0]}, torch {picks[1]}); relative gaps to the "
+              f"top score {[f'{g:.3g}' for g in gaps]} (tie tol {TIE_RTOL})")
+        if max(gaps) > TIE_RTOL:
+            raise AssertionError("the GreedyTL selections differ away from "
+                                 "a tie")
+    return len(diverged)
+
+
+def check_f_rows(res_c, res_t, yte, k):
+    """Every F-measure row of the two routes agrees within what two
+    flipped test predictions can move it: one flip moves precision by
+    1/n_test and one class's recall by at most 1/(k n_c), and F by at most
+    twice their sum."""
+    import numpy as np
+    counts = np.bincount(yte.cpu().numpy(), minlength=k)
+    flip = 2.0 * (1.0 / len(yte) + 1.0 / (k * counts[counts > 0].min()))
+    tol = 2 * flip
+    rows_c = dict(res_c.summary_rows())
+    rows_t = dict(res_t.summary_rows())
+    worst = max(
+        max(abs(rows_c[n] - rows_t[n]) for n in rows_c),
+        float(np.abs(res_c.f_local - res_t.f_local).max()),
+        float(np.abs(res_c.f_gtl2 - res_t.f_gtl2).max()))
+    print(f"F-measure rows (kernel=cuda / kernel=torch; max |diff| "
+          f"{worst:.3g}, tol {tol:.3g} = two flipped test predictions):")
+    for n in rows_c:
+        print(f"  {n:14s} {rows_c[n]:.6f} / {rows_t[n]:.6f}")
+    print(f"  Cloud {rows_c['Cloud']:.6f} beside mu-GTL(4) "
+          f"{rows_c['mu-GTL(4)']:.6f}, noHTL_mu {rows_c['noHTL_mu']:.6f}; "
+          f"PPG mu-GTL(4) over local (mean) "
+          f"{float(np.mean(res_c.ppg()['gtl4_mu'])):.4f}")
+    if worst > tol:
+        raise AssertionError("the two routes' F-measures disagree")
+    return worst
+
+
+def learning_breakdown(card, kernel, kappa=64, lam=3.0):
+    """Where run_scenario('hapt') spends its time: each stage of
+    run_scenario_on run on its own, synchronised, on the same data; and the
+    device's busy share over one whole run, from a torch.profiler trace
+    (the sum of the device kernels' times over the wall-clock)."""
+    import torch
+    from repro_torch.core import base_learner as bl
+    from repro_torch.core import greedytl, gtl
+    from repro_torch.core.experiment import make_scenario, run_scenario
+    shards, (Xte, yte), spec = make_scenario("hapt", 0, device="cuda")
+    k = spec.n_classes
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    with bl.fp32_matmuls():
+        X, y, mask = gtl.shard_tensors(shards, "cuda")
+        timed("Cloud SVM", lambda: bl.fit_linear_svm(
+            X.reshape(-1, X.shape[-1]), y.reshape(-1), k,
+            sample_mask=mask.reshape(-1)))
+        base = timed("local SVMs (GTL step 0)",
+                     lambda: gtl.train_base_models(X, y, mask, k))
+
+        def stats():
+            H = gtl.source_margins(X, base)
+            Y = bl.onehot_pm(y, k) * mask[..., None, :]
+            Z, _ = greedytl.build_design(X[:, None], H, mask[:, None])
+            return greedytl.gram_stats(Z, Y, mask[:, None].expand(Y.shape),
+                                       kernel=kernel)
+        G, c = timed("design + Gram statistics", stats)
+        timed(f"GreedyTL loop ({kappa} picks)",
+              lambda: greedytl.greedytl_from_gram(G, c, kappa, lam, kernel))
+        timed("local SVMs again (noHTL)",
+              lambda: gtl.train_base_models(X, y, mask, k))
+    total = sum(stages.values())
+    print(f"run_scenario('hapt') stages, kernel={kernel} [{card}]: " + ", ".join(
+        f"{n} {1e3 * t:.1f} ms" for n, t in stages.items())
+        + f"; sum {1e3 * total:.1f} ms")
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_scenario("hapt", kernel=kernel, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # CPU ops also report the time of what they launched
+        t = getattr(e, "self_device_time_total", None)
+        dev_us += getattr(e, "self_cuda_time_total", 0) if t is None else t
+        launches += e.count
+    busy = (f"{1e-3 * dev_us:.1f} ms of device kernel time over {launches} "
+            f"device events, busy share {1e-6 * dev_us / wall:.3f}"
+            if dev_us > 0 else "device time not measured (the trace held "
+            "no device events)")
+    print(f"run_scenario('hapt') traced, kernel={kernel} [{card}]: wall "
+          f"{1e3 * wall:.1f} ms (profiler on), {busy}")
+
+
+def learning_phase(card, gen):
+    """Phase 6: the paper's framework at the full HAPT size through both
+    kernels; returns their entries of the kernels line."""
+    import torch
+    from repro_torch.core.experiment import run_scenario
+    from repro_torch.kernels.greedy_scores import ops as gops
+    from repro_torch.kernels.greedy_scores import ref as gref
+
+    B, m, n = HAPT_B, HAPT_M, HAPT_N
+    gram_err = check_gram(gops, gref, gen, [(B, m, n), (3, 37, 45),
+                                            (2, 1, 70)])
+    scores_err = check_scores(gops, gref, gen, [
+        ("HAPT", B, n, 32 / n, False),
+        ("ragged", 5, 45, 0.2, False),
+        ("many selected", B, n, 0.9, False),
+        ("planted tie", 4, n, 0.5, True)])
+
+    # the main path: counts from 0, and no plain version may run on it
+    plain_calls = []
+    real = gref.reference_gram, gref.reference_scores
+
+    def spy(fn):
+        def call(*a, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+    gref.reference_gram, gref.reference_scores = map(spy, real)
+    gops.gram.launches = gops.scores_argmax.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_c = run_scenario("hapt", kernel="cuda", device="cuda")
+        torch.cuda.synchronize()
+        secs_c = time.perf_counter() - t0
+    finally:
+        gref.reference_gram, gref.reference_scores = real
+    launches = {"gram": gops.gram.launches,
+                "scores_argmax": gops.scores_argmax.launches}
+    kappa = res_c.gtl.gtl_selected.shape[-1]
+    print(f"learning path kernel=cuda: run_scenario('hapt') launches "
+          f"{launches} (expected gram 1, scores_argmax {kappa}); plain "
+          f"versions called: {len(plain_calls)}")
+    if min(launches.values()) == 0 or plain_calls:
+        raise AssertionError("the learning path did not run through both "
+                             "kernels alone")
+
+    res_t = run_scenario("hapt", kernel="torch", device="cuda")
+    if (gops.gram.launches, gops.scores_argmax.launches) != tuple(
+            launches.values()):
+        raise AssertionError("kernel='torch' launched a kernel")
+    diverged = check_selections(res_c, res_t, 3.0)
+    from repro_torch.core.experiment import make_scenario
+    _, (_, yte), _ = make_scenario("hapt", 0, device="cuda")
+    check_f_rows(res_c, res_t, yte, 12)
+    o = res_c.overhead
+    print(f"overhead (HAPT, d0={o.d0}, d1={o.d1}): OH^GTL {o.oh_gtl_mb:.2f} "
+          f"MB, OH_mu^noHTL {o.oh_nohtl_mu_mb:.2f} MB, OH_mv^noHTL "
+          f"{o.oh_nohtl_mv_mb:.2f} MB, OH^cl {o.oh_cloud_mb:.2f} MB, "
+          f"gains {o.gains()}")
+
+    # wall-clock per route, in turns (the first runs above include warm-up)
+    walls = {"cuda": [secs_c], "torch": []}
+    for route in ("torch", "cuda", "cuda", "torch"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_scenario("hapt", kernel=route, device="cuda")
+        torch.cuda.synchronize()
+        walls[route].append(time.perf_counter() - t0)
+    print(f"run_scenario('hapt') wall-clock [{card}]: kernel=cuda "
+          f"{[round(w, 3) for w in walls['cuda']]} s (first incl. warm-up), "
+          f"kernel=torch {[round(w, 3) for w in walls['torch']]} s; "
+          f"{diverged} selection divergences at ties")
+
+    for route in ("cuda", "torch"):
+        learning_breakdown(card, route)
+
+    # kernel timing at the HAPT shapes (CUDA-graph replay)
+    Z = torch.randn(B, m, n, generator=gen, device="cuda") / m ** 0.5
+    g_ms = time_ms(lambda: gops.gram(Z), iters=5, reps=4)
+    g_plain = time_ms(lambda: gref.reference_gram(Z), iters=5, reps=4)
+    Zt = Z.mT
+    g_lib = time_ms(lambda: torch.bmm(Zt, Z), iters=5, reps=4)
+    g_bound, g_by = gram_bound_ms(B, m, n)
+    corr = torch.randn(B, n, generator=gen, device="cuda")
+    diag = torch.rand(B, n, generator=gen, device="cuda") + 0.05
+    sel = torch.rand(B, n, generator=gen, device="cuda") < 32 / n
+    s_ms = time_ms(lambda: gops.scores_argmax(corr, diag, sel, 3.0))
+    s_plain = time_ms(lambda: gref.reference_scores(corr, diag, sel, 3.0))
+    s_bound, s_by = scores_bound_ms(B, n)
+    print(f"gram (B={B}, m={m}, n={n}) [{card}]: kernel {g_ms:.4f} ms, "
+          f"plain {g_plain:.4f} ms, torch.bmm {g_lib:.4f} ms, bound "
+          f"{g_bound:.4f} ms ({g_by})")
+    print(f"scores_argmax (B={B}, n={n}) [{card}]: kernel {s_ms:.4f} ms, "
+          f"plain {s_plain:.4f} ms, library -, bound {s_bound:.5f} ms "
+          f"({s_by})")
+    src = "src/repro_torch/kernels/greedy_scores/csrc/greedy_scores.cu"
+    tpu = "src/repro/kernels/greedy_scores/greedy_scores.py"
+    return [
+        {"name": "gram", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:54", "launches": launches["gram"],
+         "max_abs_err": gram_err, "ms": g_ms, "plain_ms": g_plain,
+         "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib},
+        {"name": "scores_argmax", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:93", "launches": launches["scores_argmax"],
+         "max_abs_err": scores_err, "ms": s_ms, "plain_ms": s_plain,
+         "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
+    ]
 
 
 def main() -> int:
@@ -217,6 +595,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.greedy_scores import ops as gops
     from repro_torch.kernels.paged_attention import ops, ref
     from repro_torch.models.params import init_params
     from repro_torch.serving import (ContinuousBatcher, Request,
@@ -227,13 +606,15 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
 
-    # 1. build
+    # 1. build, one nvcc per source, all at once
+    libs = {"paged_attention": ops.SOURCES, "greedy_scores": gops.SOURCES}
     t0 = time.perf_counter()
-    _build.load("paged_attention", ops.SOURCES)
-    print(f"built paged_attention in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("paged_attention", ops.SOURCES).splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    _build.build_all(libs)
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    for name, sources in libs.items():
+        for line in _build.build_log(name, sources).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
 
     # 2. kernel vs plain at the main path's shapes (qwen3_0_6b: H=16,
     #    KV=8, hd=128, page 16, capacity 256 -> 16 pages per slot)
@@ -338,6 +719,9 @@ def main() -> int:
     print(f"paged_attention prefill B=1 S=16 last=47 [{card}]: kernel "
           f"{pre_ms:.4f} ms, bound {pre_b:.5f} ms")
 
+    # 6. the paper's learning framework
+    learning = learning_phase(card, gen)
+
     print(json.dumps({"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -351,7 +735,7 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": lib_ms,
-    }]}))
+    }] + learning}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

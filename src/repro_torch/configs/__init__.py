@@ -5,7 +5,10 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen3_0_6b",)
+ARCHS = (
+    "qwen3_0_6b",
+    "gtl_paper",  # the paper's own (linear) model as a config entry
+)
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

@@ -52,22 +52,39 @@ def library_path(name: str, sources) -> Path:
 def build(name: str, sources) -> Path:
     """Compile `sources` into one shared library (skipped when a library
     of the same sources and flags exists).  Returns its path."""
-    sources = [str(s) for s in sources]
-    out = library_path(name, sources)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name} "
-                           f"(exit {res.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return out
+    return build_all({name: sources})[name]
+
+
+def build_all(libraries: dict) -> dict:
+    """Build several libraries ({name: sources}) at once: one nvcc process
+    each, all started together, then waited for.  Returns {name: path};
+    raises after every process has ended if any build failed."""
+    outs, procs = {}, {}
+    for name, sources in libraries.items():
+        sources = [str(s) for s in sources]
+        out = outs[name] = library_path(name, sources)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        out = outs[name]
+        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name} "
+                          f"(exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str, sources) -> ctypes.CDLL:
