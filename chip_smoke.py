@@ -30,7 +30,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    only at a tie of the top two scores) and agreeing F-measures; print the
    F rows beside Cloud and the overhead report; time both kernels by
    CUDA-graph replay, and each route's wall-clock with a stage breakdown
-   and the device's busy share from a torch.profiler trace.
+   and the device's busy share from a torch.profiler trace;
+7. the no-cache prefill (``make_prefill_step``) of full-width qwen3_0_6b,
+   zamba2_2_7b and rwkv6_7b (random bf16 weights from a seed; B=2,
+   S=2048): flash attention and the chunked GLA scan held against their
+   plain versions (bf16 and fp32; head_dim 64/80/128, GQA, window, chunk
+   mask, ragged S; the scan's two modes, Dv 64/128, ragged S, extreme
+   decay, Mamba2's stride-0 views); each model through kernel="cuda" with
+   launch counts from 0 and a spy that fails on any plain-version call,
+   then kernel="torch" (no launch allowed); prefill tokens/s of both
+   routes and a torch.profiler breakdown of the cuda route; the two routes
+   held to each other on the same weights widened to fp32 (every block
+   from the same input, and the logits end to end, with the growth of
+   their difference over the blocks), and each bf16 route's distance from
+   that fp32 result; each
+   kernel timed by CUDA-graph replay at the path's shapes beside its plain
+   version, its bound and (flash attention) SDPA.
 
 Prints the card's name and power limit, a JSON line of kernels, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -45,10 +60,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, and fp32 on the
-# CUDA cores (the kernel's arithmetic is fp32 FMA, not tensor cores)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, fp32 on the
+# CUDA cores, and bf16 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 BF16_TOL = 1e-2  # bf16 output: one ulp below 2.0 is 7.8e-3; fp32 sum order
 
 # GreedyTL at the paper's HAPT size (src/repro/data/synth.py HAPT_LIKE):
@@ -237,10 +253,11 @@ def bound_ms(B, S, H, KV, hd, psz, lasts, q_bytes, pool_bytes, P):
     return roofline_ms(byts, flops)
 
 
-def roofline_ms(byts, flops):
-    """(the larger of bytes over the HBM rate and fp32 flops over the fp32
-    peak, in ms; which of the two it is)."""
-    t_b, t_f = byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def roofline_ms(byts, flops, flop_per_s=FP32_FLOP_PER_S):
+    """(the larger of bytes over the HBM rate and flops over the given
+    peak (fp32 on the CUDA cores by default), in ms; which of the two it
+    is)."""
+    t_b, t_f = byts / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
@@ -585,6 +602,469 @@ def learning_phase(card, gen):
          "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
     ]
 
+# ---------------------------------------------------------------- prefill
+
+# the prefill phase's shape: two sequences of 2048 tokens (a multiple of the
+# reference kernels' 128- and 64-row blocks)
+PREFILL_B, PREFILL_S = 2, 2048
+# launches of one make_prefill_step call per architecture: (flash, scan)
+PREFILL_LAUNCHES = {"qwen3_0_6b": (28, 0),   # one per attention layer
+                    "zamba2_2_7b": (6, 54),  # 6 shared-block calls, 54 Mamba2
+                    "rwkv6_7b": (0, 32)}     # one per RWKV6 layer
+# flash attention vs its plain version: the online softmax sums in another
+# order than the materialized one (fp32, about 1e-6); bf16 output: one ulp
+# below 2.0 is 7.8e-3
+FLASH_FP32_TOL = 1e-5
+# the scan vs its plain version (the same sub-chunks, sums in another
+# order): |err| <= tol * (1 + |want|); bf16 y is rounded once (one ulp is
+# 2^-8 = 3.9e-3 relative)
+SCAN_FP32_TOL = 1e-4
+SCAN_BF16_TOL = 1e-2
+# The two routes, held to each other.  In bf16 they are not comparable bit
+# for bit: both round activations to bf16 (2^-9 relative) at different
+# places (the plain attention rounds its probabilities to bf16 before the
+# PV product, the kernels keep them in fp32).  On the same weights widened
+# to fp32 only the summation order differs, about 1e-6 relative per block;
+# but a deep stack amplifies any difference, and the random-init RWKV6
+# stack does so about 1.5-fold per block (PERF.md).  So:
+# - every block is run on both routes from the same fp32 input (teacher
+#   forcing along the plain route): outputs within BLOCK_FP32_RTOL of the
+#   block output's largest magnitude — the routes compute one function;
+# - end to end, the fp32 routes' logits must differ by less than
+#   FP32_VS_BF16 of what bf16 rounding moves the plain route's logits
+#   (max |diff|, and positions whose argmax flips);
+# - each bf16 route's rms distance from the fp32 logits: the cuda route's
+#   at most BF16_NOISE_RATIO times the torch route's (both carry bf16
+#   rounding noise of one size; a kernel error would show as more).
+BLOCK_FP32_RTOL = 1e-4
+FP32_VS_BF16 = 0.25
+BF16_NOISE_RATIO = 2.0
+
+
+def flash_bound_ms(B, S, H, KV, hd, elem_bytes, window=0):
+    """Least time for one causal flash attention: q, k, v read once and
+    the output written once over the HBM rate, or 4 * hd flops (QK^T and
+    PV) per admitted (query, key) pair per head at the tensor-core peak of
+    the inputs' type, whichever is larger."""
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    byts = B * S * (2 * H + 2 * KV) * hd * elem_bytes
+    peak = BF16_FLOP_PER_S if elem_bytes == 2 else FP32_FLOP_PER_S
+    return roofline_ms(byts, 4 * hd * pairs * B * H, peak)
+
+
+def scan_bound_ms(B, S, H, Dk, Dv, elem_bytes, q_bytes, ld_bytes):
+    """Least time for one scan: the recurrence's 4 * Dk * Dv fp32 flops per
+    token and head (state update and read) at the fp32 peak, or the inputs
+    read once (q_bytes and ld_bytes: their distinct bytes, which for
+    Mamba2's broadcast views are per token, not per head) and y written
+    once over the HBM rate."""
+    byts = q_bytes + ld_bytes + 2 * B * S * H * Dv * elem_bytes
+    return roofline_ms(byts, 4 * Dk * Dv * B * S * H)
+
+
+def check_flash(fops, fref, gen):
+    """Flash kernel vs plain version; returns the max abs error."""
+    import torch
+    cases = [  # (name, B, S, H, KV, hd, window, chunk, dtype)
+        ("qwen3 path", 2, 2048, 16, 8, 128, 0, 0, torch.bfloat16),
+        ("zamba2 path", 2, 2048, 32, 32, 80, 0, 0, torch.bfloat16),
+        ("hd 64 GQA 2 fp32", 2, 512, 8, 4, 64, 0, 0, torch.float32),
+        ("hd 128 fp32", 1, 512, 4, 4, 128, 0, 0, torch.float32),
+        ("hd 80 GQA 4", 2, 384, 8, 2, 80, 0, 0, torch.bfloat16),
+        ("window 256", 1, 1024, 16, 8, 128, 256, 0, torch.bfloat16),
+        ("window 100 fp32", 1, 700, 4, 2, 64, 100, 0, torch.float32),
+        ("chunk 256", 1, 1024, 4, 2, 128, 0, 256, torch.bfloat16),
+        ("ragged S=1000", 2, 1000, 16, 8, 128, 0, 0, torch.bfloat16),
+        ("ragged S=1000 fp32", 1, 1000, 4, 1, 80, 0, 0, torch.float32),
+    ]
+    worst = 0.0
+    for name, B, S, H, KV, hd, window, chunk, dt in cases:
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+        out = fops.flash_attention(q, k, v, window=window, chunk=chunk)
+        want = fref.reference_attention(q, k, v, window=window, chunk=chunk)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        tol = BF16_TOL if dt == torch.bfloat16 else FLASH_FP32_TOL
+        print(f"flash_attention {name} (B={B}, S={S}, H={H}, KV={KV}, "
+              f"hd={hd}, window={window}, chunk={chunk}, "
+              f"{str(dt).split('.')[-1]}): max_abs_err={err:.3g} (tol {tol})")
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"flash_attention {name}: kernel disagrees "
+                                 f"with its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def _scan_inputs(gen, B, S, H, Dk, Dv, dt, *, bonus, decay=None,
+                 mamba=False):
+    """Random scan inputs on the card.  mamba: q/k broadcast over heads and
+    ld over Dk (stride-0 views, as mamba2_block passes them).  decay: ld =
+    -decay * |N(0, 1)|; else -softplus(N(0, 1))."""
+    import torch
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    if mamba:
+        q = r(B, S, Dk).to(dt)[:, :, None].expand(B, S, H, Dk)
+        k = r(B, S, Dk).to(dt)[:, :, None].expand(B, S, H, Dk)
+        z = r(B, S, H)[..., None].expand(B, S, H, Dk)
+    else:
+        q, k, z = r(B, S, H, Dk).to(dt), r(B, S, H, Dk).to(dt), r(B, S, H, Dk)
+    ld = -decay * z.abs() if decay else -torch.nn.functional.softplus(z)
+    v = r(B, S, H, Dv).to(dt)
+    u = r(H, Dk).abs().to(dt) if bonus else None
+    return q, k, v, ld, u
+
+
+def check_scan(sops, sref, gen):
+    """Scan kernel vs plain version; returns the max abs error."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, B, S, H, Dk, Dv, dtype, bonus, decay, mamba)
+        ("zamba2 path (Mamba2, stride-0 views)", 2, 2048, 80, 64, 64, bf,
+         False, None, True),
+        ("rwkv6 path (bonus)", 2, 2048, 64, 64, 64, bf, True, None, False),
+        ("Mamba2 fp32", 2, 512, 8, 64, 64, f32, False, None, False),
+        ("bonus fp32", 2, 512, 8, 64, 64, f32, True, None, False),
+        ("Dv 128 bonus", 1, 512, 4, 64, 128, bf, True, None, False),
+        ("Dv 128 fp32", 1, 256, 4, 64, 128, f32, False, None, False),
+        ("ragged S=1000", 2, 1000, 8, 64, 64, bf, True, None, False),
+        ("ragged S=1000 fp32 Mamba2", 1, 1000, 8, 64, 64, f32, False, None,
+         True),
+        ("extreme decay -30|N|", 1, 512, 4, 64, 64, f32, False, 30.0, False),
+        ("extreme decay bonus", 1, 512, 4, 64, 64, f32, True, 30.0, False),
+    ]
+    worst = 0.0
+    for name, B, S, H, Dk, Dv, dt, bonus, decay, mamba in cases:
+        q, k, v, ld, u = _scan_inputs(gen, B, S, H, Dk, Dv, dt, bonus=bonus,
+                                      decay=decay, mamba=mamba)
+        y, st = sops.ssm_scan(q, k, v, ld, u=u)
+        want = sref.reference_scan(q, k, v, ld, u=u)
+        torch.cuda.synchronize()
+        diff = (y.float() - want.float()).abs()
+        err = diff.max().item()
+        tol = SCAN_BF16_TOL if dt == bf else SCAN_FP32_TOL
+        ratio = (diff / (1 + want.float().abs())).max().item() / tol
+        print(f"ssm_scan {name} (B={B}, S={S}, H={H}, Dk={Dk}, Dv={Dv}, "
+              f"{str(dt).split('.')[-1]}): max_abs_err={err:.3g}, worst "
+              f"|err| / (tol * (1 + |want|)) = {ratio:.3g} (tol {tol})")
+        if not (ratio <= 1 and torch.isfinite(y).all()
+                and torch.isfinite(st).all()):
+            raise AssertionError(f"ssm_scan {name}: kernel disagrees with "
+                                 f"its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def compare_routes(name, c16, t16, c32, t32):
+    """The routes' logits end to end: fp32 against fp32, and each bf16
+    route against the fp32 result.  Returns a list of failures."""
+    import torch
+    ref_am = t32.argmax(-1)
+    d32 = (c32 - t32).abs().max().item()
+    flips32 = int((c32.argmax(-1) != ref_am).sum())
+    d16 = (t16.float() - t32).abs().max().item()
+    flips16 = int((t16.float().argmax(-1) != ref_am).sum())
+    print(f"prefill {name} fp32 logits cuda vs torch: max |diff| {d32:.4g}, "
+          f"argmax differs at {flips32} of {ref_am.numel()} positions; bf16 "
+          f"rounding moves the torch route by max |diff| {d16:.4g} and "
+          f"{flips16} argmaxes (tol: fp32 below {FP32_VS_BF16} of bf16)")
+    rms = {}
+    for route, x in (("cuda", c16), ("torch", t16)):
+        d = x.float() - t32
+        rms[route] = d.square().mean().sqrt().item()
+        agree = (x.float().argmax(-1) == ref_am).float().mean().item()
+        print(f"prefill {name} bf16 kernel={route} vs fp32: rms |diff| "
+              f"{rms[route]:.4g}, max |diff| {d.abs().max().item():.4g}, "
+              f"argmax agrees at {agree:.4f} of positions")
+    print(f"prefill {name} bf16 cuda vs torch: max |diff| "
+          f"{(c16.float() - t16.float()).abs().max().item():.4g}; rms "
+          f"distance ratio cuda/torch {rms['cuda'] / rms['torch']:.3f} "
+          f"(tol {BF16_NOISE_RATIO})")
+    fails = []
+    if not all(torch.isfinite(x).all() for x in (c16, t16, c32, t32)):
+        fails.append(f"{name}: non-finite logits")
+    if d32 > FP32_VS_BF16 * d16 or flips32 > FP32_VS_BF16 * flips16:
+        fails.append(f"{name}: the fp32 routes differ beyond the tolerance")
+    if rms["cuda"] > BF16_NOISE_RATIO * rms["torch"]:
+        fails.append(f"{name}: the cuda route's bf16 logits are farther from "
+                     f"fp32 than the tolerance allows")
+    return fails
+
+
+BLOCKS = ("_attn_mlp_block", "_rwkv_block", "_mamba_block")
+
+
+def _wrapped_blocks(TT, wrap):
+    """Replace the transformer's block functions by wrap(name, original)
+    until the returned restore function is called."""
+    real = {n: getattr(TT, n) for n in BLOCKS}
+    for n, fn in real.items():
+        setattr(TT, n, wrap(n, fn))
+
+    def restore():
+        for n, fn in real.items():
+            setattr(TT, n, fn)
+    return restore
+
+
+def _block_out(out):
+    return out[0] if isinstance(out, tuple) else out  # attention: (h, cache)
+
+
+def blockwise_parity(name, TT, params, cfg, toks):
+    """Every block of a plain-route forward also run on the kernel route
+    from the same input (its output discarded): the largest
+    |cuda - torch| relative to the block output's largest magnitude, over
+    the blocks.  Returns a list of failures."""
+    worst = []
+
+    def wrap(n, fn):
+        def call(*a, kernel, **kw):
+            out = fn(*a, kernel=kernel, **kw)
+            if kernel == "torch":
+                h = _block_out(out)
+                h2 = _block_out(fn(*a, kernel="cuda", **kw))
+                worst.append(((h2 - h).abs().max() / h.abs().max()).item())
+            return out
+        return call
+    restore = _wrapped_blocks(TT, wrap)
+    try:
+        TT.forward(params, cfg, toks, kernel="torch")
+    finally:
+        restore()
+    top = max(range(len(worst)), key=worst.__getitem__)
+    print(f"prefill {name} fp32 blockwise cuda vs torch: {len(worst)} blocks, "
+          f"worst max |diff| / max |out| {worst[top]:.3g} at block {top}, "
+          f"first {worst[0]:.3g} (tol {BLOCK_FP32_RTOL})")
+    if worst[top] > BLOCK_FP32_RTOL:
+        return [f"{name}: a block's fp32 outputs differ between the routes"]
+    return []
+
+
+def free_running(name, TT, params, cfg, toks, make_prefill_step):
+    """Both routes' full forwards, each block's output recorded: how the
+    routes' difference grows with depth.  Returns (cuda logits, torch
+    logits)."""
+    outs = {"cuda": [], "torch": []}
+
+    def wrap(n, fn):
+        def call(*a, kernel, **kw):
+            out = fn(*a, kernel=kernel, **kw)
+            outs[kernel].append(_block_out(out))
+            return out
+        return call
+    restore = _wrapped_blocks(TT, wrap)
+    try:
+        c = make_prefill_step(cfg, kernel="cuda")(params, toks)
+        t = make_prefill_step(cfg, kernel="torch")(params, toks)
+    finally:
+        restore()
+    d = [(x - y).abs().max().item() for x, y in zip(outs["cuda"],
+                                                    outs["torch"])]
+    n = len(d)
+    growth = (d[-1] / d[0]) ** (1 / (n - 1)) if n > 1 and d[0] > 0 else 0.0
+    print(f"prefill {name} fp32 free-running cuda vs torch, max |diff| of "
+          f"block outputs: after block 0 {d[0]:.3g}, block {n // 2} "
+          f"{d[n // 2]:.3g}, block {n - 1} {d[-1]:.3g} (max |out| "
+          f"{outs['torch'][-1].abs().max().item():.3g}); growth "
+          f"{growth:.3f} per block")
+    return c, t
+
+
+def device_breakdown(card, name, fn):
+    """One call of `fn` under torch.profiler: the device's kernel time by
+    kernel name (top five) and its busy share of the wall-clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        rows.append((getattr(e, "self_cuda_time_total", 0) if t is None
+                     else t, e.count, e.key))
+    dev_us = sum(r[0] for r in rows)
+    if dev_us == 0:
+        print(f"prefill {name} traced [{card}]: device time not measured "
+              f"(the trace held no device events)")
+        return
+    top = sorted(rows, reverse=True)[:5]
+    print(f"prefill {name} traced, kernel=cuda [{card}]: wall "
+          f"{1e3 * wall:.1f} ms (profiler on), {1e-3 * dev_us:.1f} ms of "
+          f"device kernel time over {sum(r[1] for r in rows)} device events, "
+          f"busy share {1e-6 * dev_us / wall:.3f}; top: " + "; ".join(
+              f"{k[:60]} x{c} {1e-3 * t:.1f} ms" for t, c, k in top))
+
+
+def _widen(tree):
+    """A parameter tree with every leaf widened to fp32 (a copy)."""
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def prefill_phase(card, gen):
+    """Phase 7: the no-cache prefill of three architectures at full width
+    through both kernels; returns their entries of the kernels line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.base_learner import fp32_matmuls
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.serve_step import make_prefill_step
+
+    flash_err = check_flash(fops, fref, gen)
+    scan_err = check_scan(sops, sref, gen)
+
+    # the plain versions the cuda route must not reach
+    plain = [(fref, "reference_attention"), (sref, "chunked_scan"),
+             (Lyr, "multi_head_attention"), (Lyr, "chunked_attention")]
+    plain_calls = []
+
+    def spy(fn):
+        def call(*a, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+
+    B, S = PREFILL_B, PREFILL_S
+    launches = {"flash_attention": 0, "ssm_scan": 0}
+    fails = []
+    for arch, expect in PREFILL_LAUNCHES.items():
+        cfg = get_config(arch)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(1))
+        step_c = make_prefill_step(cfg, kernel="cuda")
+        step_t = make_prefill_step(cfg, kernel="torch")
+        saved = [getattr(m, n) for m, n in plain]
+        for (m, n), fn in zip(plain, saved):
+            setattr(m, n, spy(fn))
+        fops.flash_attention.launches = sops.ssm_scan.launches = 0
+        try:
+            torch.cuda.synchronize()
+            logits_c = step_c(params, toks)
+            torch.cuda.synchronize()
+        finally:
+            for (m, n), fn in zip(plain, saved):
+                setattr(m, n, fn)
+        got = (fops.flash_attention.launches, sops.ssm_scan.launches)
+        print(f"prefill {arch} (B={B}, S={S}) kernel=cuda: launches flash "
+              f"{got[0]}, scan {got[1]} (expected {expect}); plain versions "
+              f"called: {len(plain_calls)}")
+        if got != expect or plain_calls:
+            raise AssertionError(f"{arch}: the prefill did not run through "
+                                 f"the kernels alone")
+        launches["flash_attention"] += got[0]
+        launches["ssm_scan"] += got[1]
+        logits_t = step_t(params, toks)
+        torch.cuda.synchronize()
+        if (fops.flash_attention.launches, sops.ssm_scan.launches) != got:
+            raise AssertionError(f"{arch}: kernel='torch' launched a kernel")
+        if tuple(logits_c.shape) != (B, S, cfg.vocab_size):
+            raise AssertionError(f"{arch}: logits of shape "
+                                 f"{tuple(logits_c.shape)}")
+        # wall-clock per route, in turns, after the warm-up calls above
+        walls = {"cuda": [], "torch": []}
+        for route in ("torch", "cuda", "cuda", "torch"):
+            step = step_c if route == "cuda" else step_t
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, toks)
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+        tps = {r: B * S / min(w) for r, w in walls.items()}
+        print(f"prefill {arch} wall-clock [{card}]: kernel=cuda "
+              f"{[round(w, 4) for w in walls['cuda']]} s, kernel=torch "
+              f"{[round(w, 4) for w in walls['torch']]} s; tokens/s (best "
+              f"of two) cuda {tps['cuda']:.0f}, torch {tps['torch']:.0f}")
+        device_breakdown(card, arch, lambda: step_c(params, toks))
+
+        # the same weights in fp32: the routes held to each other
+        params32 = _widen(params)
+        del params
+        torch.cuda.empty_cache()
+        cfg32 = cfg.replace(dtype="float32")
+        with fp32_matmuls():
+            c32, t32 = free_running(arch, TT, params32, cfg32, toks,
+                                    make_prefill_step)
+            fails += blockwise_parity(arch, TT, params32, cfg32, toks)
+            torch.cuda.synchronize()
+        del params32
+        fails += compare_routes(arch, logits_c, logits_t, c32, t32)
+        del logits_c, logits_t, c32, t32, step_c, step_t
+        torch.cuda.empty_cache()
+
+    # kernel timing at the path's shapes (CUDA-graph replay)
+    bf = torch.bfloat16
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(bf)  # noqa: E731
+    flash_rows = {}
+    for arch, H, KV, hd in (("qwen3_0_6b", 16, 8, 128),
+                            ("zamba2_2_7b", 32, 32, 80)):
+        q, k, v = r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd)
+        qs, ks, vs = (a.transpose(1, 2) for a in (q, k, v))
+        ms = time_ms(lambda: fops.flash_attention(q, k, v), iters=10, reps=5)
+        p_ms = time_ms(lambda: fref.reference_attention(q, k, v), iters=2,
+                       reps=3)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), iters=10, reps=5)
+        bnd, by = flash_bound_ms(B, S, H, KV, hd, 2)
+        flash_rows[arch] = (ms, p_ms, lib, bnd, by)
+        print(f"flash_attention {arch} (B={B}, S={S}, H={H}, KV={KV}, "
+              f"hd={hd}, bf16) [{card}]: kernel {ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    scan_rows = {}
+    for arch, H, mamba in (("zamba2_2_7b", 80, True), ("rwkv6_7b", 64, False)):
+        q, k, v, ld, u = _scan_inputs(gen, B, S, H, 64, 64, bf,
+                                      bonus=not mamba, mamba=mamba)
+        ms = time_ms(lambda: sops._launch(q, k, v, ld, u), iters=10, reps=5)
+        p_ms = time_ms(lambda: sref.reference_scan(q, k, v, ld, u=u),
+                       iters=2, reps=3)
+        # distinct input bytes of q and k (bf16), and of ld (fp32)
+        per_tok = (2 * B * S * 64 * 2, B * S * H * 4) if mamba else \
+            (2 * B * S * H * 64 * 2, B * S * H * 64 * 4)
+        bnd, by = scan_bound_ms(B, S, H, 64, 64, 2, *per_tok)
+        scan_rows[arch] = (ms, p_ms, bnd, by)
+        print(f"ssm_scan {arch} (B={B}, S={S}, H={H}, Dk=Dv=64, bf16"
+              f"{', stride-0 q/k/ld' if mamba else ', bonus'}) [{card}]: "
+              f"kernel {ms:.4f} ms, plain {p_ms:.4f} ms, library -, bound "
+              f"{bnd:.4f} ms ({by})")
+
+    if fails:
+        raise AssertionError("; ".join(fails))
+    fm, fp, fl, fb, fby = flash_rows["qwen3_0_6b"]
+    sm, sp, sb, sby = scan_rows["zamba2_2_7b"]
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:80",
+         "launches": launches["flash_attention"], "max_abs_err": flash_err,
+         "ms": fm, "plain_ms": fp, "bound_ms": fb, "bound_by": fby,
+         "library_ms": fl},
+        {"name": "ssm_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:77",
+         "launches": launches["ssm_scan"], "max_abs_err": scan_err,
+         "ms": sm, "plain_ms": sp, "bound_ms": sb, "bound_by": sby,
+         "library_ms": None},
+    ]
+
 
 def main() -> int:
     import torch
@@ -595,8 +1075,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.greedy_scores import ops as gops
     from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.models.params import init_params
     from repro_torch.serving import (ContinuousBatcher, Request,
                                      SamplingParams, ServingConfig,
@@ -607,7 +1089,8 @@ def main() -> int:
     print(f"card: {card}")
 
     # 1. build, one nvcc per source, all at once
-    libs = {"paged_attention": ops.SOURCES, "greedy_scores": gops.SOURCES}
+    libs = {"paged_attention": ops.SOURCES, "greedy_scores": gops.SOURCES,
+            "flash_attention": fops.SOURCES, "ssm_scan": sops.SOURCES}
     t0 = time.perf_counter()
     _build.build_all(libs)
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
@@ -722,6 +1205,11 @@ def main() -> int:
     # 6. the paper's learning framework
     learning = learning_phase(card, gen)
 
+    # 7. the no-cache prefill of three architectures
+    del params
+    torch.cuda.empty_cache()
+    prefill = prefill_phase(card, gen)
+
     print(json.dumps({"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -735,7 +1223,7 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": lib_ms,
-    }] + learning}))
+    }] + learning + prefill}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

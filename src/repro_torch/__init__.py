@@ -7,6 +7,10 @@ far: paged serving of dense decoders (``serving.ContinuousBatcher`` with
 kernel (``kernels/paged_attention``); and the paper's learning framework
 (``core.experiment.run_scenario``: Cloud, GTL, noHTL), with GreedyTL's
 Gram statistic and candidate scoring in hand-written CUDA kernels
-(``kernels/greedy_scores``).  Entry points take ``device=`` and
-default to ``"cuda"``; the CPU runs only when the caller asks for it.
+(``kernels/greedy_scores``); and the no-cache prefill of the dense,
+hybrid and RWKV6 families (``serving.serve_step.make_prefill_step``),
+with flash attention and the chunked GLA scan in hand-written CUDA
+kernels (``kernels/flash_attention``, ``kernels/ssm_scan``).  Entry
+points take ``device=`` and default to ``"cuda"``; the CPU runs only
+when the caller asks for it.
 """

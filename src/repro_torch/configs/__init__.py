@@ -7,6 +7,8 @@ import importlib
 
 ARCHS = (
     "qwen3_0_6b",
+    "zamba2_2_7b",
+    "rwkv6_7b",
     "gtl_paper",  # the paper's own (linear) model as a config entry
 )
 

@@ -3,8 +3,9 @@ families (dense / MoE / SSM / hybrid / VLM / audio).
 
 A verbatim copy of ``repro.models.config``: the JAX package reaches it
 through ``repro/models/__init__.py``, which imports JAX, so the port keeps
-its own.  The port runs ``arch_type="dense"`` only; the other fields are
-kept so configs read the same in both packages."""
+its own.  The port runs the dense, RWKV6, Mamba2 and hybrid families
+(``models.params.check_arch``); the other fields are kept so configs read
+the same in both packages."""
 from __future__ import annotations
 
 import dataclasses

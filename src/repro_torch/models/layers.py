@@ -15,17 +15,29 @@ Differences from the JAX module, all deliberate:
 - ``paged_kernel`` is ``"torch"`` (the plain scatter + ring gather, the
   counterpart of JAX's "xla") or ``"cuda"`` (the hand-written paged
   attention kernel, the counterpart of "pallas").  There is no silent
-  fallback between them: a block the kernel does not take raises.
+  fallback between them: a block the kernel does not take raises;
+- the no-cache forward's ``kernel`` is ``"torch"`` (``attention_impl``
+  picks the materialized or the chunked online-softmax attention, as in
+  the reference) or ``"cuda"`` (the hand-written flash-attention kernel,
+  the counterpart of ``use_pallas=True``; CPU tensors take its plain
+  version).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models.config import ModelConfig
 
-PAGED_KERNELS = ("torch", "cuda")
+KERNELS = ("torch", "cuda")  # the plain path, or the hand-written kernel
+PAGED_KERNELS = KERNELS
+
+
+def check_kernel(kernel: str, name: str = "kernel"):
+    if kernel not in KERNELS:
+        raise ValueError(f"{name}={kernel!r}: accepted values are {KERNELS}")
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):
@@ -93,6 +105,51 @@ def multi_head_attention(q, k, v, mask, dtype=None):
     return out.reshape(B, S, H, hd).to(dtype or v.dtype)
 
 
+def chunked_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, dtype=None):
+    """Flash-style online-softmax attention over k-blocks of
+    ``cfg.attention_block`` keys (shrunk until it divides T), plain torch:
+    no (S, T) probability matrix is built; the working set is (S, block).
+    The reference's ``chunked_attention`` step for step, the
+    probabilities rounded to v's dtype before the PV product as there.
+    q: (B, S, H, hd), k/v: (B, T, KV, hd); q_pos (B, S), k_pos (B, T) or
+    (T,)."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    bk = min(cfg.attention_block, T)
+    while T % bk:
+        bk -= 1
+    n_blocks = T // bk
+    scale = 1.0 / float(hd) ** 0.5
+    qh = q.reshape(B, S, KV, g, hd).float()
+    kb = k.reshape(B, n_blocks, bk, KV, hd)
+    vb = v.reshape(B, n_blocks, bk, KV, hd)
+    kpb = (k_pos.reshape(B, n_blocks, bk) if k_pos.ndim == 2 else
+           k_pos.reshape(n_blocks, bk)[None].expand(B, n_blocks, bk))
+    m = torch.full((B, KV, g, S), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, g, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, KV, g, hd), dtype=torch.float32,
+                      device=q.device)
+    neg = torch.full((), -1e30, device=q.device)
+    for j in range(n_blocks):
+        kj, vj = kb[:, j], vb[:, j]
+        s = torch.einsum("bskgh,btkh->bkgst", qh, kj.float()) * scale
+        blk_mask = _attn_mask(q_pos, kpb[:, j], cfg.sliding_window)
+        s = torch.where(blk_mask[:, None, None, :, :], s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkh->bskgh", p.to(vj.dtype).float(),
+                          vj.float())
+        acc = acc * alpha.movedim(-1, 1)[..., None] + pv
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    out = acc / l.movedim(-1, 1)[..., None]
+    return out.reshape(B, S, H, hd).to(dtype or v.dtype)
+
+
 def _paged_plain(q, k, v, cache, abs_pos, positions, window):
     """The plain paged path (JAX's "xla" branch): scatter the S new rows
     into the pool through the block table, gather each lane's whole
@@ -131,20 +188,26 @@ def _paged_plain(q, k, v, cache, abs_pos, positions, window):
 
 
 def attention_block(p, x, cfg: ModelConfig, *, positions=None, cache=None,
-                    paged_kernel: str = "torch"):
+                    paged_kernel: str = "torch", kernel: str = "torch"):
     """GQA attention with RoPE, qk-norm, bias and window masking.
 
     cache: None for a full-sequence forward (self-attention over x), or
     a paged decode cache {"k": (n_pages, page_size, KV, hd), "v": ...,
     "block_table": (B, P) int32 page ids, "pos": (B,) int32 positions}.
     Returns (out, new_cache); the pools in new_cache are the pools that
-    were passed, updated in place with the S new rows."""
+    were passed, updated in place with the S new rows.
+
+    kernel (no-cache forward): "cuda" runs the flash-attention kernel
+    where the reference's ``use_pallas`` branch does (causal, with the
+    config's window; the kernel masks by sequence index, as the
+    reference's does); "torch" takes ``cfg.attention_impl``: "chunked"
+    (online softmax over key blocks) or else the materialized softmax.
+    paged_kernel (paged cache): "torch" or "cuda", see the module note."""
     if cfg.mrope or cfg.chunked_attention:
         raise NotImplementedError(
             "M-RoPE and chunked-local attention are not ported yet")
-    if paged_kernel not in PAGED_KERNELS:
-        raise ValueError(f"paged_kernel={paged_kernel!r}: accepted values "
-                         f"are {PAGED_KERNELS}")
+    check_kernel(paged_kernel, "paged_kernel")
+    check_kernel(kernel)
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -170,8 +233,13 @@ def attention_block(p, x, cfg: ModelConfig, *, positions=None, cache=None,
         cos, sin = rope_angles(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        out = multi_head_attention(q, k, v,
-                                   _attn_mask(positions, positions, window))
+        if kernel == "cuda":
+            out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        elif cfg.attention_impl == "chunked":
+            out = chunked_attention(q, k, v, positions, positions, cfg)
+        else:
+            out = multi_head_attention(
+                q, k, v, _attn_mask(positions, positions, window))
         new_cache = None
     else:
         if "block_table" not in cache:

@@ -1,7 +1,7 @@
-"""Serving steps of the port: the paged engine's fused decode tick and its
-chunked-prefill block — the counterparts of
-``repro.serving.serve_step.make_paged_engine_step`` and
-``make_paged_prefill_step``.
+"""Serving steps of the port: the no-cache prefill (full-sequence forward,
+logits only), the paged engine's fused decode tick and its chunked-prefill
+block — the counterparts of ``repro.serving.serve_step.make_prefill_step``,
+``make_paged_engine_step`` and ``make_paged_prefill_step``.
 
 Each step runs, in this order: reset -> copy-on-write page copies ->
 forward -> scores -> argmax + margin -> logprob.  The copy precedes the
@@ -18,6 +18,20 @@ from repro_torch.serving.kvcache import (cow_copy_pages, paged_slot_slice,
                                          reset_paged_sub)
 from repro_torch.serving.sampling import (argmax_with_margin, batched_scores,
                                           row_scores, token_logprob)
+
+
+def make_prefill_step(cfg: ModelConfig, kernel: str = "torch"):
+    """Full-sequence forward (the inference-prefill shape): logits only.
+
+    step(params, tokens) -> logits (B, S, V); tokens: (B, S) int tensor.
+    kernel: "torch" (the plain attention and scan) or "cuda" (the
+    flash-attention and scan kernels), the counterpart of the
+    reference's ``use_pallas``."""
+
+    def step(params, tokens):
+        return T.forward(params, cfg, tokens, kernel=kernel).logits
+
+    return step
 
 
 def make_paged_engine_step(cfg: ModelConfig, kernel: str = "torch"):

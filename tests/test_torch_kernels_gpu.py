@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (paged attention; GreedyTL's Gram and scores)
-against their plain PyTorch versions, on the card.  Marked ``gpu``: without a CUDA device each test skips (a CUDA
+"""The port's CUDA kernels (paged attention; GreedyTL's Gram and scores;
+flash attention and the chunked GLA scan of the no-cache prefill) against
+their plain PyTorch versions, on the card.  Marked ``gpu``: without a CUDA device each test skips (a CUDA
 kernel has no interpret mode).  Imports no JAX, so it runs on a machine
 with the card and no JAX:
 
@@ -148,3 +149,155 @@ def test_learning_path_runs_through_both_kernels():
     assert torch.equal(got.gtl.gtl_selected, want.gtl.gtl_selected)
     for (name, a), (_, b) in zip(got.summary_rows(), want.summary_rows()):
         assert a == pytest.approx(b, abs=1e-6), name
+
+
+# ----------------------------------------------- no-cache prefill kernels
+
+
+def _cuda(a, dt=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda().to(dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,window,chunk", [
+    (2, 256, 16, 8, 128, 0, 0),      # qwen3_0_6b's heads, GQA 2
+    (2, 256, 32, 32, 80, 0, 0),      # zamba2_2_7b's shared attention
+    (1, 1000, 4, 2, 64, 0, 0),       # ragged S (not a multiple of 64)
+    (2, 300, 4, 1, 64, 100, 0),      # sliding window, GQA 4
+    (1, 512, 2, 2, 128, 0, 128),     # chunked-local mask
+    (1, 77, 8, 4, 80, 16, 32),       # every mask term, one partial block
+])
+def test_flash_attention_kernel_matches_plain_version(dtype, B, S, H, KV, hd,
+                                                      window, chunk):
+    """The flash-attention kernel against its plain version (full fp32
+    softmax): within 1e-5 in fp32 (the online softmax sums in another
+    order) and 1e-2 in bf16 (one output ulp below 2.0 is 7.8e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S * hd + window)
+    q = _cuda(rng.normal(size=(B, S, H, hd)), dt)
+    k = _cuda(rng.normal(size=(B, S, KV, hd)), dt)
+    v = _cuda(rng.normal(size=(B, S, KV, hd)), dt)
+    n = fops.flash_attention.launches
+    out = fops.flash_attention(q, k, v, window=window, chunk=chunk)
+    want = fref.reference_attention(q, k, v, window=window, chunk=chunk)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches == n + 1
+    assert out.dtype == dt and out.shape == q.shape
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_raises_instead_of_falling_back():
+    """A CUDA tensor the kernel does not take (head_dim 96, a strided
+    view) raises; nothing silently runs the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import ops as fops
+    q = torch.randn(1, 64, 2, 96, device="cuda")
+    with pytest.raises(ValueError):
+        fops.flash_attention(q, q, q)
+    q = torch.randn(1, 64, 2, 128, device="cuda")
+    with pytest.raises(ValueError):
+        fops.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                             q.transpose(1, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,Dk,Dv,bonus,decay", [
+    (2, 256, 4, 64, 64, False, 1.0),     # Mamba2 mode
+    (2, 256, 4, 64, 64, True, 1.0),      # RWKV6 bonus mode
+    (1, 200, 2, 64, 128, True, 1.0),     # Dv 128, ragged S
+    (1, 50, 3, 32, 64, False, 1.0),      # S < one sub-chunk multiple
+    (1, 128, 2, 64, 64, False, 30.0),    # extreme decay
+    (1, 128, 2, 64, 64, True, 30.0),
+])
+def test_ssm_scan_kernel_matches_plain_version(dtype, B, S, H, Dk, Dv, bonus,
+                                               decay):
+    """The scan kernel against its plain version (the same 16-row
+    sub-chunks, torch ops): within 1e-4 in fp32 (sums in another order)
+    and 1e-2 relative in bf16 (y is rounded to bf16 once); finite under
+    decays of -30 |N(0, 1)| per step, where the weights underflow to 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S + Dv + int(bonus))
+    q = _cuda(rng.normal(size=(B, S, H, Dk)), dt)
+    k = _cuda(rng.normal(size=(B, S, H, Dk)), dt)
+    v = _cuda(rng.normal(size=(B, S, H, Dv)), dt)
+    z = rng.normal(size=(B, S, H, Dk))
+    ld = _cuda(-np.abs(z) * decay if decay > 1 else -np.log1p(np.exp(z)))
+    u = _cuda(np.abs(rng.normal(size=(H, Dk)))) if bonus else None
+    n = sops.ssm_scan.launches
+    y, st = sops.ssm_scan(q, k, v, ld, u=u)
+    want = sref.reference_scan(q, k, v, ld, u=u)
+    torch.cuda.synchronize()
+    assert sops.ssm_scan.launches == n + 1
+    assert y.dtype == dt and y.shape == v.shape
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_reads_stride0_views():
+    """Mamba2's layout: q/k broadcast over heads and ld over Dk as stride-0
+    views; the kernel reads them as given, equal to contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.ssm_scan import ops as sops
+    B, S, H, N, Dv = 2, 192, 6, 64, 64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    C = torch.randn(B, S, N, generator=g, device="cuda")
+    Bm = torch.randn(B, S, N, generator=g, device="cuda")
+    v = torch.randn(B, S, H, Dv, generator=g, device="cuda")
+    ld = -torch.rand(B, S, H, generator=g, device="cuda")
+    views = (C[:, :, None].expand(B, S, H, N), Bm[:, :, None].expand(B, S, H, N),
+             v, ld[..., None].expand(B, S, H, N))
+    y_view, _ = sops.ssm_scan(*views)
+    y_copy, _ = sops.ssm_scan(*(a.contiguous() for a in views))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y_view, y_copy, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,flash,scan", [("qwen3_0_6b", 2, 0),
+                                             ("zamba2_2_7b", 2, 2),
+                                             ("rwkv6_7b", 0, 2)])
+def test_prefill_path_runs_through_the_kernels(arch, flash, scan):
+    """make_prefill_step at smoke widths on the card: kernel="cuda"
+    launches flash attention once per attention layer (zamba2: per shared
+    block call) and the scan once per recurrent layer; kernel="torch"
+    launches neither; the logits agree within 1e-4 (fp32, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.base_learner import fp32_matmuls
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.serve_step import make_prefill_step
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    with fp32_matmuls():
+        f0, s0 = fops.flash_attention.launches, sops.ssm_scan.launches
+        got = make_prefill_step(cfg, kernel="cuda")(params, toks)
+        assert (fops.flash_attention.launches - f0,
+                sops.ssm_scan.launches - s0) == (flash, scan)
+        want = make_prefill_step(cfg, kernel="torch")(params, toks)
+        assert (fops.flash_attention.launches - f0,
+                sops.ssm_scan.launches - s0) == (flash, scan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
