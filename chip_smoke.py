@@ -45,7 +45,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    their difference over the blocks), and each bf16 route's distance from
    that fp32 result; each
    kernel timed by CUDA-graph replay at the path's shapes beside its plain
-   version, its bound and (flash attention) SDPA.
+   version, its bound and (flash attention) SDPA, with the achieved
+   TFLOP/s of the bf16 flash kernel and of SDPA.  Every bf16 flash launch
+   of the prefills must go to the tensor-core kernel
+   (flash_attention_tc.cu); its ptxas report (registers, shared memory, no
+   spills allowed) and its count of HGMMA instructions in the SASS
+   (``cuobjdump -sass``, where the toolkit has it; none is a failure) are
+   printed after the build.
 
 Prints the card's name and power limit, a JSON line of kernels, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -662,6 +668,56 @@ def scan_bound_ms(B, S, H, Dk, Dv, elem_bytes, q_bytes, ld_bytes):
     return roofline_ms(byts, 4 * Dk * Dv * B * S * H)
 
 
+def flash_tc_report(_build, fops):
+    """The bf16 tensor-core flash kernel as built: ptxas's registers and
+    spills and the dynamic shared memory per instantiation, and its HGMMA
+    instructions in the SASS.  Raises on a spill or on SASS without
+    HGMMA."""
+    import ctypes
+    from pathlib import Path
+    lib = _build.load("flash_attention", fops.SOURCES)
+    lib.flash_attention_tc_smem_bytes.restype = ctypes.c_int
+    entry, spills = None, []
+    for line in _build.build_log("flash_attention", fops.SOURCES).splitlines():
+        if "Compiling entry function" in line:
+            entry = line if "flash_tc_kernel" in line else None
+        elif entry and ("registers" in line or "spill" in line):
+            hd = entry.split("flash_tc_kernelILi")[1].split("E")[0]
+            print(f"  flash_tc_kernel<{hd}> ptxas: {line.strip()}"
+                  + (f"; dynamic shared memory "
+                     f"{lib.flash_attention_tc_smem_bytes(int(hd))} bytes"
+                     if "registers" in line else ""))
+            if "spill" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads"):
+                spills.append(hd)
+    if spills:
+        raise AssertionError(f"flash_tc_kernel spills registers (head_dim "
+                             f"{spills})")
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        print("  flash_tc_kernel SASS: cuobjdump not in the toolkit, not "
+              "counted")
+        return
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass",
+         str(_build.library_path("flash_attention", fops.SOURCES))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("flash_tc_kernelILi")[1].split("E")[0] \
+                if "flash_tc_kernel" in line else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    print(f"  flash_tc_kernel SASS: HGMMA instructions per head_dim {counts}")
+    if not counts or not all(counts.values()):
+        raise AssertionError("the tensor-core flash kernel's SASS holds no "
+                             "HGMMA instruction")
+
+
 def check_flash(fops, fref, gen):
     """Flash kernel vs plain version; returns the max abs error."""
     import torch
@@ -687,9 +743,15 @@ def check_flash(fops, fref, gen):
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
         tol = BF16_TOL if dt == torch.bfloat16 else FLASH_FP32_TOL
+        # bf16: both sides round an fp32 result once, so where the kernel
+        # keeps fp32 precision (p split in two bf16 terms) they are mostly
+        # bit-equal, and differ by one ulp near a rounding boundary
+        same = "" if dt != torch.bfloat16 else \
+            f", bit-equal {(out == want).float().mean().item():.4f}"
         print(f"flash_attention {name} (B={B}, S={S}, H={H}, KV={KV}, "
               f"hd={hd}, window={window}, chunk={chunk}, "
-              f"{str(dt).split('.')[-1]}): max_abs_err={err:.3g} (tol {tol})")
+              f"{str(dt).split('.')[-1]}): max_abs_err={err:.3g} (tol {tol})"
+              f"{same}")
         if not (err <= tol and torch.isfinite(out).all()):
             raise AssertionError(f"flash_attention {name}: kernel disagrees "
                                  f"with its plain version")
@@ -956,6 +1018,8 @@ def prefill_phase(card, gen):
         for (m, n), fn in zip(plain, saved):
             setattr(m, n, spy(fn))
         fops.flash_attention.launches = sops.ssm_scan.launches = 0
+        fops.flash_attention.launches_tensor_core = 0
+        fops.flash_attention.launches_cuda_core = 0
         try:
             torch.cuda.synchronize()
             logits_c = step_c(params, toks)
@@ -964,10 +1028,13 @@ def prefill_phase(card, gen):
             for (m, n), fn in zip(plain, saved):
                 setattr(m, n, fn)
         got = (fops.flash_attention.launches, sops.ssm_scan.launches)
+        tc = (fops.flash_attention.launches_tensor_core,
+              fops.flash_attention.launches_cuda_core)
         print(f"prefill {arch} (B={B}, S={S}) kernel=cuda: launches flash "
-              f"{got[0]}, scan {got[1]} (expected {expect}); plain versions "
+              f"{got[0]} (tensor-core kernel {tc[0]}, CUDA-core kernel "
+              f"{tc[1]}), scan {got[1]} (expected {expect}); plain versions "
               f"called: {len(plain_calls)}")
-        if got != expect or plain_calls:
+        if got != expect or plain_calls or tc != (got[0], 0):
             raise AssertionError(f"{arch}: the prefill did not run through "
                                  f"the kernels alone")
         launches["flash_attention"] += got[0]
@@ -1025,9 +1092,13 @@ def prefill_phase(card, gen):
             qs, ks, vs, is_causal=True, enable_gqa=True), iters=10, reps=5)
         bnd, by = flash_bound_ms(B, S, H, KV, hd, 2)
         flash_rows[arch] = (ms, p_ms, lib, bnd, by)
+        # the causal work: 4 * hd flops per admitted (query, key) pair
+        tflop = 4 * hd * (S * (S + 1) // 2) * B * H / 1e12
         print(f"flash_attention {arch} (B={B}, S={S}, H={H}, KV={KV}, "
-              f"hd={hd}, bf16) [{card}]: kernel {ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+              f"hd={hd}, bf16) [{card}]: kernel {ms:.4f} ms "
+              f"({tflop / ms * 1e3:.1f} TFLOP/s), plain {p_ms:.4f} ms, sdpa "
+              f"{lib:.4f} ms ({tflop / lib * 1e3:.1f} TFLOP/s), bound "
+              f"{bnd:.4f} ms ({by})")
     scan_rows = {}
     for arch, H, mamba in (("zamba2_2_7b", 80, True), ("rwkv6_7b", 64, False)):
         q, k, v, ld, u = _scan_inputs(gen, B, S, H, 64, 64, bf,
@@ -1052,7 +1123,7 @@ def prefill_phase(card, gen):
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention.cu",
+                   "flash_attention_tc.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:80",
          "launches": launches["flash_attention"], "max_abs_err": flash_err,
          "ms": fm, "plain_ms": fp, "bound_ms": fb, "bound_by": fby,
@@ -1098,6 +1169,7 @@ def main() -> int:
         for line in _build.build_log(name, sources).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
+    flash_tc_report(_build, fops)
 
     # 2. kernel vs plain at the main path's shapes (qwen3_0_6b: H=16,
     #    KV=8, hd=128, page 16, capacity 256 -> 16 pages per slot)

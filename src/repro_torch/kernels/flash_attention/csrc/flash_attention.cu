@@ -1,7 +1,10 @@
-// Blockwise causal attention with an online softmax: the Hopper port of the
-// TPU kernel `flash_attention_bhsd` (`_kernel`) in
-// src/repro/kernels/flash_attention/flash_attention.py, behind
-// ops.flash_attention (the no-cache forward's attention).
+// Blockwise causal attention with an online softmax on the CUDA cores, in
+// fp32: the fp32 path of ops.flash_attention, a port of the TPU kernel
+// `flash_attention_bhsd` (`_kernel`) in
+// src/repro/kernels/flash_attention/flash_attention.py.  bf16 inputs, the
+// no-cache forward's main path, go to the tensor-core kernel in
+// flash_attention_tc.cu instead: flash_attention_launch below picks the
+// kernel by the inputs' type.
 //
 // What it computes (per batch row b, query head h, KV head h / g): for each
 // query position i, softmax over the admitted keys j of q_i . k_j * scale
@@ -11,18 +14,14 @@
 // logits in fp32, masked logits set to -1e30 and their p set to 0, the
 // running (m, l, acc) rescaled by exp(m_prev - m_new) per key block, l
 // clamped at 1e-30 before the division, and p kept in fp32 for the PV
-// product (q, k, v are widened to fp32 on load; the output is rounded to
-// q's dtype once).
+// product.
 //
-// What bounds it: operations.  Per (b, h) the causal work is about
-// 2 * S^2 * hd flops (QK^T and PV over the lower triangle) against
-// (2 * S * hd + 2 * S * hd / g) * bytes moved; at S = 2048, hd = 128 that
-// is over 1000 flops per byte, far above the card's ridge.  On the bf16
-// tensor cores (989 TFLOP/s) the least time at qwen3_0_6b's prefill
-// (B = 2, H = 16, S = 2048) is about 0.035 ms.
+// What bounds it: operations, at 4 * hd flops per admitted (query, key)
+// pair; in fp32 the tensor cores offer only TF32, which would not keep the
+// fp32 products, so this kernel runs on the CUDA cores (67 TFLOP/s).  It
+// serves chip_smoke.py's fp32 block-parity checks, not the bf16 main path.
 //
-// Design (simple first: fp32 FMA on the CUDA cores, no tensor cores, no
-// TMA; a later PR makes it fast):
+// Design (simple: fp32 FMA, no tensor cores, no TMA):
 // - the TPU grid walks the k blocks as a sequential axis and carries
 //   (acc, m, l) in VMEM.  Here one CTA owns one (q block of 64 rows, h, b)
 //   and loops over the key blocks itself, keeping (acc, m, l) in
@@ -36,8 +35,8 @@
 //   copy (the JAX wrapper repeats K/V over the query heads).
 // - S need not be a multiple of the block: rows >= S are not stored, keys
 //   >= S are masked and their K/V rows zero-filled.
-// - 256 threads as 16 x 16.  Q and K tiles are staged in shared memory as
-//   fp32, transposed ([d][row], rows padded to 68 floats) so that a thread
+// - 256 threads as 16 x 16.  Q and K tiles are staged in shared memory
+//   transposed ([d][row], rows padded to 68 floats) so that a thread
 //   reads its 4 query rows and 4 keys with two float4 loads per d; each
 //   thread holds a 4 x 4 block of logits.  Row maxima and sums reduce over
 //   the 16 threads of a row with warp shuffles.  p goes to shared memory
@@ -46,7 +45,6 @@
 // - head_dim is a template parameter: 64, 80 and 128 are built (the smoke
 //   configs, zamba2_2_7b's shared attention, qwen3_0_6b).
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -58,22 +56,13 @@ constexpr int kLD = kBQ + 4;       // padded row of a transposed tile
 constexpr float kNegInf = -1e30f;
 
 struct Args {
-  const void* q;   // (B, S, H, hd)
-  const void* k;   // (B, S, KV, hd)
-  const void* v;   // (B, S, KV, hd)
-  void* o;         // (B, S, H, hd)
+  const float* q;  // (B, S, H, hd)
+  const float* k;  // (B, S, KV, hd)
+  const float* v;  // (B, S, KV, hd)
+  float* o;        // (B, S, H, hd)
   int B, S, H, KV, causal, window, chunk;
   float scale;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ bool admitted(const Args& a, int qp, int kp) {
   bool ok = kp < a.S;
@@ -83,7 +72,7 @@ __device__ __forceinline__ bool admitted(const Args& a, int qp, int kp) {
   return ok;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
   constexpr int kCols = HD / 16;   // output columns per thread
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
@@ -103,20 +92,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
 
   const size_t q_row = static_cast<size_t>(a.H) * HD;
   const size_t kv_row = static_cast<size_t>(a.KV) * HD;
-  const T* qg = static_cast<const T*>(a.q) + static_cast<size_t>(b) * S * q_row
-                + static_cast<size_t>(h) * HD;
-  const T* kg = static_cast<const T*>(a.k)
-                + static_cast<size_t>(b) * S * kv_row
-                + static_cast<size_t>(kvh) * HD;
-  const T* vg = static_cast<const T*>(a.v)
-                + static_cast<size_t>(b) * S * kv_row
-                + static_cast<size_t>(kvh) * HD;
-  T* og = static_cast<T*>(a.o) + static_cast<size_t>(b) * S * q_row
-          + static_cast<size_t>(h) * HD;
+  const float* qg = a.q + static_cast<size_t>(b) * S * q_row
+                    + static_cast<size_t>(h) * HD;
+  const float* kg = a.k + static_cast<size_t>(b) * S * kv_row
+                    + static_cast<size_t>(kvh) * HD;
+  const float* vg = a.v + static_cast<size_t>(b) * S * kv_row
+                    + static_cast<size_t>(kvh) * HD;
+  float* og = a.o + static_cast<size_t>(b) * S * q_row
+              + static_cast<size_t>(h) * HD;
 
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int i = e / HD, d = e % HD, s = q0 + i;
-    Qt[d * kLD + i] = s < S ? to_f(qg[s * q_row + d]) : 0.f;
+    Qt[d * kLD + i] = s < S ? qg[s * q_row + d] : 0.f;
   }
 
   // the key blocks that can hold an admitted key for some row of the block
@@ -142,7 +129,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
     __syncthreads();  // Q staged; the last block's PV is done with KVs, Pt
     for (int e = tid; e < kBK * HD; e += kThreads) {
       const int j = e / HD, d = e % HD, s = k0 + j;
-      KVs[d * kLD + j] = s < S ? to_f(kg[s * kv_row + d]) : 0.f;
+      KVs[d * kLD + j] = s < S ? kg[s * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -202,7 +189,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
           make_float4(sc[0][c], sc[1][c], sc[2][c], sc[3][c]);
     for (int e = tid; e < kBK * HD; e += kThreads) {
       const int j = e / HD, d = e % HD, s = k0 + j;
-      KVs[j * HD + d] = s < S ? to_f(vg[s * kv_row + d]) : 0.f;
+      KVs[j * HD + d] = s < S ? vg[s * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -226,13 +213,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
     const float lc = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      put(og + s * q_row + tx + 16 * c, acc[r][c] / lc);
+      og[s * q_row + tx + 16 * c] = acc[r][c] / lc;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kern = flash_kernel<T, HD>;
+  auto kern = flash_kernel<HD>;
   const int smem = (2 * HD * kLD + kBK * kLD) * static_cast<int>(sizeof(float));
   static bool attr_set = false;
   if (!attr_set) {
@@ -246,31 +233,47 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_hd(const Args& a, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch<T, 64>(a, stream);
-    case 80: return launch<T, 80>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 64: return launch<64>(a, stream);
+    case 80: return launch<80>(a, stream);
+    case 128: return launch<128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and the output).
-// Returns a cudaError_t code (0 on success); the launch is checked with
-// cudaGetLastError().
+extern "C" int flash_attention_tc_launch(int head_dim, const void* q,
+                                         const void* k, const void* v,
+                                         void* out, int B, int S, int H,
+                                         int KV, int causal, int window,
+                                         int chunk, float scale,
+                                         void* stream);
+
+// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and the output).  The
+// type picks the kernel: float32 runs the CUDA-core kernel above, bfloat16
+// the tensor-core kernel (flash_attention_tc.cu); *variant is set to 0 or
+// 1 to say which was launched.  Returns a cudaError_t code (0 on success);
+// the launch is checked with cudaGetLastError().
 extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
                                       const void* k, const void* v, void* out,
                                       int B, int S, int H, int KV, int causal,
                                       int window, int chunk, float scale,
-                                      void* stream) {
+                                      void* stream, int* variant) {
   if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV) return cudaErrorInvalidValue;
-  Args a{q, k, v, out, B, S, H, KV, causal, window, chunk, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_hd<float>(a, head_dim, st);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(a, head_dim, st);
+  if (dtype == 0) {
+    *variant = 0;
+    Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+           static_cast<const float*>(v), static_cast<float*>(out), B, S, H,
+           KV, causal, window, chunk, scale};
+    return launch_hd(a, head_dim, static_cast<cudaStream_t>(stream));
+  }
+  if (dtype == 1) {
+    *variant = 1;
+    return flash_attention_tc_launch(head_dim, q, k, v, out, B, S, H, KV,
+                                     causal, window, chunk, scale, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -5,10 +5,14 @@ contract (causal by default, optional sliding window and chunked-local
 masks, fp32 softmax, output in q's dtype).
 
 Where the tensors lie picks the implementation, nothing else does: CUDA
-tensors launch the hand-written kernel (csrc/flash_attention.cu, built
-with nvcc on first use); CPU tensors run the plain PyTorch version
-(ref.py).  Anything else raises — there is no fallback from the kernel.
-``flash_attention.launches`` counts the kernel's launches.
+tensors launch a hand-written kernel (built with nvcc on first use); CPU
+tensors run the plain PyTorch version (ref.py).  Anything else raises —
+there is no fallback from the kernels.  On the card the inputs' type picks
+the kernel: bf16 runs the tensor-core kernel (csrc/flash_attention_tc.cu:
+wgmma on TMA-fed tiles), fp32 the CUDA-core kernel
+(csrc/flash_attention.cu).  ``flash_attention.launches`` counts the
+launches of both; ``launches_tensor_core`` and ``launches_cuda_core``
+count each kernel's, as the launch reports which one it ran.
 
 Unlike the JAX wrapper, K/V are not repeated over the query heads (the
 kernel reads KV head h // g itself) and S need not be a multiple of the
@@ -24,7 +28,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_tc.cu")
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 80, 128)
 MAX_GRID_YZ = 65535  # heads and batch ride the grid's y and z axes
@@ -36,7 +41,7 @@ def _lib():
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [I, I, P, P, P, P, I, I, I, I, I, I, I,
-                       ctypes.c_float, P]
+                       ctypes.c_float, P, ctypes.POINTER(I)]
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -70,8 +75,9 @@ def _validate(q, k, v, window, chunk):
 
 
 def _launch(q, k, v, causal, window, chunk):
-    """Check what the CUDA kernel takes, launch it on the current stream,
-    raise if the launch was refused."""
+    """Check what the CUDA kernels take, launch one on the current stream,
+    raise if the launch was refused.  Returns the output and whether the
+    launch reported the tensor-core kernel (else the CUDA-core one)."""
     B, S, H, hd = q.shape
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -87,18 +93,23 @@ def _launch(q, k, v, causal, window, chunk):
     if H > MAX_GRID_YZ or B > MAX_GRID_YZ:
         raise ValueError(f"the CUDA kernel takes at most {MAX_GRID_YZ} "
                          f"heads and batch rows; got H={H}, B={B}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("the bf16 kernel reads q, k, v with TMA, which "
+                         "needs 16-byte aligned base addresses")
     out = torch.empty_like(q)
     lib = _lib()
+    variant = ctypes.c_int(-1)
     rc = lib.flash_attention_launch(
         KERNEL_DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, S, H, k.shape[2], int(bool(causal)), int(window),
         int(chunk), 1.0 / float(hd) ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(variant))
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: "
             f"{lib.flash_attention_error_string(rc).decode()} ({rc})")
-    return out
+    return out, variant.value == 1
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, chunk=0):
@@ -110,9 +121,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, chunk=0):
     if q.device.type == "cpu":
         return ref.reference_attention(q, k, v, causal=causal, window=window,
                                        chunk=chunk).to(q.dtype)
-    out = _launch(q, k, v, causal, window, chunk)
+    out, tensor_core = _launch(q, k, v, causal, window, chunk)
     flash_attention.launches += 1
+    if tensor_core:
+        flash_attention.launches_tensor_core += 1
+    else:
+        flash_attention.launches_cuda_core += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tensor_core = 0
+flash_attention.launches_cuda_core = 0

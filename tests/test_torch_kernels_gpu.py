@@ -209,6 +209,84 @@ def test_flash_attention_raises_instead_of_falling_back():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd,window,chunk", [
+    (3, 1, 4, 4, 128, 0, 0),       # S = 1: 127 of the CTA's rows past S
+    (3, 63, 4, 2, 64, 0, 0),       # S < 64: one warpgroup's rows all past S
+    (3, 129, 8, 2, 80, 0, 0),      # one row into the second q block
+    (2, 1000, 8, 4, 128, 0, 0),    # ragged S, GQA 2
+    (3, 1000, 4, 1, 80, 0, 0),     # GQA 4, hd 80 (two panels, zero filled)
+    (1, 1000, 4, 2, 64, 100, 0),   # window: rows whose first key block is
+                                   # fully masked (m still -1e30, p = 0)
+    (2, 520, 4, 4, 80, 0, 96),     # chunk edges inside the key blocks
+    (1, 1000, 2, 1, 128, 64, 200),  # window and chunk, GQA 2
+])
+def test_flash_attention_tensor_core_kernel(B, S, H, KV, hd, window, chunk):
+    """The bf16 tensor-core kernel (wgmma on TMA-fed tiles, p split into
+    two bf16 terms) against its plain version: within 1e-2 (one output ulp
+    below 2.0 is 7.8e-3; fp32 sum order), finite, and launched as the
+    tensor-core variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    rng = np.random.default_rng(B * S + hd + window + chunk)
+    q = _cuda(rng.normal(size=(B, S, H, hd)), torch.bfloat16)
+    k = _cuda(rng.normal(size=(B, S, KV, hd)), torch.bfloat16)
+    v = _cuda(rng.normal(size=(B, S, KV, hd)), torch.bfloat16)
+    n = fops.flash_attention.launches_tensor_core
+    out = fops.flash_attention(q, k, v, window=window, chunk=chunk)
+    want = fref.reference_attention(q, k, v, window=window, chunk=chunk)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches_tensor_core == n + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_follows_the_dtype():
+    """bf16 launches the tensor-core kernel and fp32 the CUDA-core one, as
+    the launch reports; both count in ``launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import ops as fops
+    f = fops.flash_attention
+    for dt, variant in ((torch.bfloat16, "launches_tensor_core"),
+                        (torch.float32, "launches_cuda_core")):
+        q = torch.randn(2, 192, 4, 64, device="cuda").to(dt)
+        before = (f.launches, f.launches_tensor_core, f.launches_cuda_core)
+        f(q, q, q)
+        torch.cuda.synchronize()
+        after = (f.launches, f.launches_tensor_core, f.launches_cuda_core)
+        want = (before[0] + 1,
+                before[1] + (variant == "launches_tensor_core"),
+                before[2] + (variant == "launches_cuda_core"))
+        assert after == want, (dt, before, after)
+
+
+@pytest.mark.gpu
+def test_flash_attention_tensor_core_kernel_raises():
+    """bf16 inputs the tensor-core kernel does not take raise: a strided
+    view, and a contiguous tensor whose base is not 16-byte aligned (TMA
+    reads from 16-byte aligned addresses)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import ops as fops
+    n = fops.flash_attention.launches
+    q = torch.randn(1, 2, 64, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fops.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                             q.transpose(1, 2))
+    flat = torch.randn(64 * 2 * 128 + 1, device="cuda", dtype=torch.bfloat16)
+    q = flat[1:].view(1, 64, 2, 128)
+    assert q.is_contiguous()
+    with pytest.raises(ValueError):
+        fops.flash_attention(q, q, q)
+    assert fops.flash_attention.launches == n
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,Dk,Dv,bonus,decay", [
     (2, 256, 4, 64, 64, False, 1.0),     # Mamba2 mode
