@@ -8,10 +8,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. build every CUDA kernel of the main paths from the sources in this
    checkout (nvcc, sm_90a; one nvcc process per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes: paged attention for a decode tick (S=1), a prefill
-   block (S=16), a wrapped ring and null-page padding; the GreedyTL Gram
-   and scores kernels at the HAPT shapes, a ragged case and a case with
-   many selected columns;
+   main paths' shapes: paged attention (fused update, then attention only
+   on the pools it wrote) for a decode tick (S=1), a prefill block (S=16),
+   a wrapped ring, null-page padding and an idle lane, slots at position 0
+   (every split but one without an admitted key), a wrapped ring under a
+   window at S=16, GQA 4 and a bf16 pool; the GreedyTL Gram and scores kernels at the
+   HAPT shapes, a ragged case and a case with many selected columns;
 3. serve full-width qwen3_0_6b (28 layers, random bf16 weights from a
    seed, fp32 page pool) through ContinuousBatcher with the paged layout,
    lazy allocation and kernel="cuda": greedy and sampled requests, one
@@ -22,6 +24,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parity), finite margins and logprobs, and in-vocabulary tokens;
 5. time each kernel, its plain version and one PyTorch library call at
    the decode shape, beside its bound (bytes over the card's memory rate);
+   paged attention also at the prefill chunk (B=1, S=16), and at both
+   shapes with 1, 2, 4 and 16 block-table entries per CTA (the split);
 6. run the paper's learning framework at the full HAPT size
    (``run_scenario("hapt")``: Cloud, GTL steps 0/2/4, noHTL; d=561, k=12,
    L=21, N=10929, kappa=64, 600 SVM steps) with kernel="cuda" (launch
@@ -29,8 +33,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernel="torch"; require equal GreedyTL selections (a first divergence
    only at a tie of the top two scores) and agreeing F-measures; print the
    F rows beside Cloud and the overhead report; time both kernels by
-   CUDA-graph replay, and each route's wall-clock with a stage breakdown
-   and the device's busy share from a torch.profiler trace;
+   CUDA-graph replay (Gram's TFLOP/s beside torch.bmm's, and whether G is
+   bit-equal to the plain version), and each route's wall-clock with a
+   stage breakdown and the device's busy share from a torch.profiler
+   trace;
 7. the no-cache prefill (``make_prefill_step``) of full-width qwen3_0_6b,
    zamba2_2_7b and rwkv6_7b (random bf16 weights from a seed; B=2,
    S=2048): flash attention and the chunked GLA scan held against their
@@ -166,28 +172,41 @@ def paged_inputs(gen, *, B, S, H, KV, hd, psz, P, n_pages, lasts,
 
 
 def check_paged_attention(ops, ref, gen, cases):
-    """Kernel vs plain version on copies of the same inputs; the output
-    within BF16_TOL (or 1e-4 in fp32) and the pools bit-equal outside the
-    null page.  Returns the max abs output error."""
+    """Kernel vs plain version on copies of the same inputs: the fused
+    update, then attention only on the pools it wrote; each output within
+    BF16_TOL (or 1e-4 in fp32) and finite, the pools bit-equal outside the
+    null page.  A case's `window` is passed to both.  Returns the max abs
+    output error."""
     import torch
     worst = 0.0
     for name, kw in cases:
+        kw = dict(kw)
+        window = kw.pop("window", 0)
         q, kn, vn, kp, vp, bt, last = paged_inputs(gen, **kw)
         kp2, vp2 = kp.clone(), vp.clone()
-        out, _, _ = ops.paged_attention_update(q, kn, vn, kp, vp, bt, last)
+        out, _, _ = ops.paged_attention_update(q, kn, vn, kp, vp, bt, last,
+                                               window=window)
         want, _, _ = ref.reference_paged_update(q, kn, vn, kp2, vp2, bt,
-                                                last)
+                                                last, window=window)
         torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
         pool_err = max((kp[1:] - kp2[1:]).abs().max().item(),
                        (vp[1:] - vp2[1:]).abs().max().item())
+        kp2[0], vp2[0] = kp[0], vp[0]  # the null page's racy rows
+        only = ops.paged_attention(q, kp, vp, bt, last, window=window)
+        only_want = ref.reference_paged_attention_block(q, kp2, vp2, bt,
+                                                        last, window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        only_err = (only.float() - only_want.float()).abs().max().item()
         tol = BF16_TOL if q.dtype == torch.bfloat16 else 1e-4
-        print(f"paged_attention {name}: max_abs_err={err:.3g} "
-              f"(tol {tol}) pool_err={pool_err:.3g} (tol 0)")
-        if not (err <= tol and pool_err == 0 and torch.isfinite(out).all()):
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(only).all())
+        print(f"paged_attention {name}: max_abs_err={err:.3g} attention-only "
+              f"{only_err:.3g} (tol {tol}) pool_err={pool_err:.3g} (tol 0) "
+              f"finite={finite}")
+        if not (max(err, only_err) <= tol and pool_err == 0 and finite):
             raise AssertionError(f"paged_attention {name}: kernel disagrees "
                                  f"with its plain version")
-        worst = max(worst, err)
+        worst = max(worst, err, only_err)
     return worst
 
 
@@ -583,6 +602,8 @@ def learning_phase(card, gen):
     Zt = Z.mT
     g_lib = time_ms(lambda: torch.bmm(Zt, Z), iters=5, reps=4)
     g_bound, g_by = gram_bound_ms(B, m, n)
+    g_equal = torch.equal(gops.gram(Z), gref.reference_gram(Z))
+    g_flop = B * m * n * (n + 1)  # the minimal count (upper triangle)
     corr = torch.randn(B, n, generator=gen, device="cuda")
     diag = torch.rand(B, n, generator=gen, device="cuda") + 0.05
     sel = torch.rand(B, n, generator=gen, device="cuda") < 32 / n
@@ -591,7 +612,10 @@ def learning_phase(card, gen):
     s_bound, s_by = scores_bound_ms(B, n)
     print(f"gram (B={B}, m={m}, n={n}) [{card}]: kernel {g_ms:.4f} ms, "
           f"plain {g_plain:.4f} ms, torch.bmm {g_lib:.4f} ms, bound "
-          f"{g_bound:.4f} ms ({g_by})")
+          f"{g_bound:.4f} ms ({g_by}); TFLOP/s of the minimal count "
+          f"{g_flop / g_ms * 1e-9:.1f} (kernel), "
+          f"{g_flop / g_lib * 1e-9:.1f} (torch.bmm, which computes both "
+          f"halves); G bit-equal to the plain version: {g_equal}")
     print(f"scores_argmax (B={B}, n={n}) [{card}]: kernel {s_ms:.4f} ms, "
           f"plain {s_plain:.4f} ms, library -, bound {s_bound:.5f} ms "
           f"({s_by})")
@@ -1187,6 +1211,15 @@ def main() -> int:
          dict(full, B=3, S=1, lasts=[20, 40, 0], pages_held=[2, 3, 0])),
         ("fp32 S=4", dict(full, B=2, S=4, lasts=[9, 33],
                           q_dtype=torch.float32)),
+        # every split but the first without an admitted key
+        ("last=0", dict(full, B=3, S=1, lasts=[0, 0, 17])),
+        ("ring wrap + window S=16",
+         dict(full, B=2, S=16, lasts=[300, 3 * 256 + 77], window=40)),
+        ("GQA 4 (KV=4)", dict(full, KV=4, B=4, S=1, lasts=[17, 60, 130,
+                                                           255])),
+        ("GQA 4 (KV=4) S=16", dict(full, KV=4, B=1, S=16, lasts=[47])),
+        ("bf16 pool S=4", dict(full, B=2, S=4, lasts=[9, 33],
+                               pool_dtype=torch.bfloat16)),
     ]
     max_err = check_paged_attention(ops, ref, gen, cases)
 
@@ -1262,17 +1295,28 @@ def main() -> int:
     wall_ms = host_ms(lambda: ops.paged_attention_update(
         q, kn, vn, kp, vp, bt, last))
     b_ms, b_by = bound_ms(B, 1, H, KV, hd, psz, lasts, 2, 4, P)
-    print(f"paged_attention decode B={B} S=1 lasts={lasts} [{card}]: "
-          f"kernel {ms:.4f} ms (device, CUDA graph; {wall_ms:.4f} ms per "
-          f"eager call with the wrapper), plain {plain_ms:.4f} ms, sdpa "
-          f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     qp, knp, vnp, kpp, vpp, btp, lastp = paged_inputs(
         gen, **dict(full, B=1, S=16, lasts=[47]))
     pre_ms = time_ms(lambda: ops.paged_attention_update(
         qp, knp, vnp, kpp, vpp, btp, lastp))
-    pre_b, _ = bound_ms(1, 16, H, KV, hd, psz, [47], 2, 4, P)
+    pre_b, pre_by = bound_ms(1, 16, H, KV, hd, psz, [47], 2, 4, P)
+    # the ring split: block-table entries per CTA (16: the whole ring in
+    # one CTA, no merge), at both shapes; ops.PAGES_PER_SPLIT is shipped
+    for pps in (1, 2, 4, 16):
+        sweep = [time_ms(lambda a=a: ops._launch(
+            *a, None, 0, pages_per_split=pps)) for a in (
+                (q, kn, vn, kp, vp, bt, last),
+                (qp, knp, vnp, kpp, vpp, btp, lastp))]
+        print(f"paged_attention split sweep pages_per_split={pps}"
+              f"{' (shipped)' if pps == ops.PAGES_PER_SPLIT else ''} "
+              f"[{card}]: decode {sweep[0]:.4f} ms, prefill chunk "
+              f"{sweep[1]:.4f} ms")
+    print(f"paged_attention decode B={B} S=1 lasts={lasts} [{card}]: "
+          f"kernel {ms:.4f} ms (device, CUDA graph; {wall_ms:.4f} ms per "
+          f"eager call with the wrapper), plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     print(f"paged_attention prefill B=1 S=16 last=47 [{card}]: kernel "
-          f"{pre_ms:.4f} ms, bound {pre_b:.5f} ms")
+          f"{pre_ms:.4f} ms, bound {pre_b:.5f} ms ({pre_by})")
 
     # 6. the paper's learning framework
     learning = learning_phase(card, gen)

@@ -9,7 +9,10 @@ Anything else raises — there is no fallback from the kernel.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
 
 The kernels need no padding: ragged m and n are masked inside them (the
-JAX wrappers pad to block multiples).
+JAX wrappers pad to block multiples).  The Gram kernel computes only the
+128 x 128 tiles on or above the diagonal (one CTA each, all problems in
+one launch) and mirrors them, so G is bit-symmetric; each entry is one
+fp32 fused multiply-add chain over Z's rows in order.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.greedy_scores import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "greedy_scores.cu",)
-MAX_BATCH = 65535  # the gram kernel's grid.z
+MAX_BATCH = 65535  # the gram kernel's grid.y
 
 
 def _lib():

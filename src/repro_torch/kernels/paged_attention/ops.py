@@ -15,6 +15,16 @@ with nvcc on first use); CPU tensors run the plain PyTorch version
 (ref.py).  Anything else raises — there is no fallback from the kernel.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
+The kernel splits each slot's ring over CTAs, PAGES_PER_SPLIT
+block-table entries each, and merges the splits' partial softmax results
+in the same launch (the last CTA of each slot and KV head to finish does
+it).  The wrapper allocates the partials' scratch with ``torch.empty``,
+its size from the shapes alone, and reads nothing from the device, so a
+call can be captured in a CUDA graph.  Default query positions are
+computed in the kernel, not by the wrapper.  The kernel moves 16 bytes
+at a time, so on the card q, k_new, v_new and the pools must start
+16-byte aligned (every fresh tensor does).
+
 The pools are updated IN PLACE (the JAX wrappers returned new, aliased
 pools): the kernel writes the S new rows into the tensors it was given.
 """
@@ -31,6 +41,9 @@ from repro_torch.kernels.paged_attention import ref
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "paged_attention.cu",)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# block-table entries per CTA of the ring's split
+# (tools/paged_split_tiles.py times the choices)
+PAGES_PER_SPLIT = 2
 
 
 def _validate(q, k_pool, v_pool, block_table, last_pos, q_positions):
@@ -67,28 +80,31 @@ def _validate(q, k_pool, v_pool, block_table, last_pos, q_positions):
             f"tokens and are ineligible for the kernel")
 
 
-def _lib():
-    lib = _build.load("paged_attention", SOURCES)
+def bind(lib):
+    """Declare the C interface of a loaded build of csrc/paged_attention.cu
+    (tools/paged_split_tiles.py binds its variants with it)."""
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, ctypes.c_float, P]
+        fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P,
+                       I, I, I, I, I, I, I, I, ctypes.c_float, P]
         fn.restype = ctypes.c_int
+        lib.paged_attention_scratch_floats.argtypes = [I] * 7
+        lib.paged_attention_scratch_floats.restype = ctypes.c_longlong
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launch(q, k_new, v_new, k_pool, v_pool, block_table, last_pos,
-            q_positions, window):
+            q_positions, window, lib=None, pages_per_split=None):
     """Check what the CUDA kernel takes, launch it on the current stream,
-    raise if the launch was refused."""
+    raise if the launch was refused.  `lib` and `pages_per_split` default
+    to this package's build and PAGES_PER_SPLIT."""
     B, S, H, hd = q.shape
     dev = q.device
-    tensors = [q, k_pool, v_pool, block_table, last_pos, q_positions]
-    if k_new is not None:
-        tensors += [k_new, v_new]
+    tensors = [q, k_pool, v_pool, block_table, last_pos]
+    tensors += [t for t in (q_positions, k_new, v_new) if t is not None]
     if any(t.device != dev for t in tensors):
         raise ValueError("paged attention: every tensor must lie on "
                          f"{dev}; got {[str(t.device) for t in tensors]}")
@@ -112,15 +128,27 @@ def _launch(q, k_new, v_new, k_pool, v_pool, block_table, last_pos,
         k_new, v_new = k_new.contiguous(), v_new.contiguous()
     block_table = block_table.contiguous()
     last_pos = last_pos.contiguous()
-    q_positions = q_positions.contiguous()
+    if q_positions is not None:
+        q_positions = q_positions.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool, k_new, v_new)
+           if t is not None):
+        raise ValueError("the CUDA kernel reads and writes 16 bytes at a "
+                         "time: q, k_new, v_new and the pools must start "
+                         "16-byte aligned")
     out = torch.empty_like(q)
-    lib = _lib()
+    if lib is None:
+        lib = bind(_build.load("paged_attention", SOURCES))
+    pps = pages_per_split or PAGES_PER_SPLIT
+    KV, P = k_pool.shape[2], block_table.shape[1]
+    n_scratch = lib.paged_attention_scratch_floats(B, S, H, KV, hd, P, pps)
+    scratch = torch.empty(n_scratch, dtype=torch.float32,
+                          device=dev) if n_scratch else None
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib.paged_attention_launch(
         KERNEL_DTYPES[q.dtype], KERNEL_DTYPES[k_pool.dtype], hd, ptr(q),
         ptr(k_new), ptr(v_new), ptr(k_pool), ptr(v_pool), ptr(block_table),
-        ptr(q_positions), ptr(last_pos), ptr(out), B, S, H,
-        k_pool.shape[2], k_pool.shape[1], block_table.shape[1], int(window),
+        ptr(q_positions), ptr(last_pos), ptr(out), ptr(scratch), B, S, H,
+        KV, k_pool.shape[1], P, int(window), pps,
         1.0 / float(hd) ** 0.5, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -144,10 +172,6 @@ def _dispatch(wrapper, q, k_new, v_new, k_pool, v_pool, block_table,
     if q.device.type != "cuda":
         raise ValueError(f"paged attention runs on CUDA (the kernel) or "
                          f"the CPU (its plain version); got {q.device}")
-    S = q.shape[1]
-    if q_positions is None:
-        q_positions = last_pos[:, None] - (S - 1) + torch.arange(
-            S, dtype=torch.int32, device=q.device)[None, :]
     out = _launch(q, k_new, v_new, k_pool, v_pool, block_table, last_pos,
                   q_positions, window)
     wrapper.launches += 1

@@ -16,10 +16,14 @@ from repro_torch.kernels.paged_attention import ops, ref  # noqa: E402
 PSZ = 16
 
 
-def _inputs(seed, B, S, H, KV, hd, P, n_pages, lasts):
+def _inputs(seed, B, S, H, KV, hd, P, n_pages, lasts, held=None):
+    """held[b] real pages at the head of slot b's block-table row, the
+    rest the null page 0 (lazy allocation's tail; 0 held: an idle lane)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
     bt = rng.permutation(np.arange(1, n_pages))[:B * P].reshape(B, P)
+    for b, h in enumerate(held or []):
+        bt[b, h:] = 0
     return dict(q=f(B, S, H, hd), k_new=f(B, S, KV, hd),
                 v_new=f(B, S, KV, hd), k_pool=f(n_pages, PSZ, KV, hd),
                 v_pool=f(n_pages, PSZ, KV, hd),
@@ -27,28 +31,73 @@ def _inputs(seed, B, S, H, KV, hd, P, n_pages, lasts):
                 last_pos=np.array(lasts, np.int32))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("q_dtype,S,lasts,window", [
-    ("float32", 1, [17, 60, 130, 255], 0),
-    ("bfloat16", 1, [17, 60, 130, 255], 0),
-    ("bfloat16", 16, [15, 40, 256, 3 * 256 + 77], 0),  # prefill, ring wrap
-    ("float32", 4, [9, 33, 100, 200], 40),             # window
-])
-def test_paged_attention_kernel_matches_plain_version(q_dtype, S, lasts,
-                                                      window):
-    """The CUDA kernel (built with nvcc on first use) against its plain
-    version at the qwen3_0_6b shapes (H=16, KV=8, hd=128, 16 pages of 16
-    per slot): the output within 1e-2 for bf16 (one output ulp; fp32 sum
-    order) or 1e-5 for fp32, the written pool rows bit-equal."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    dt = getattr(torch, q_dtype)
-    x = _inputs(9, B=4, S=S, H=16, KV=8, hd=128, P=16, n_pages=65,
-                lasts=lasts)
+def _paged_pair(x, dt, pool_dt=torch.float32):
+    """The inputs on the card twice: for the kernel and for the plain
+    version (each writes its own pools)."""
     a = {k: torch.from_numpy(v).cuda() for k, v in x.items()}
     for k in ("q", "k_new", "v_new"):
         a[k] = a[k].to(dt)
-    b = {k: v.clone() for k, v in a.items()}
+    for k in ("k_pool", "v_pool"):
+        a[k] = a[k].to(pool_dt)
+    return a, {k: v.clone() for k, v in a.items()}
+
+
+def _assert_paged_close(out, want, dt):
+    """bf16 within 1e-2 (one output ulp; fp32 sum order), fp32 within
+    1e-5; finite."""
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-5
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+# qwen3_0_6b's heads (H=16, KV=8, hd=128), 16 pages of 16 per slot, bf16 q
+# and an fp32 pool, 4 slots, unless a case says otherwise; held[b] pages of
+# slot b's row are real, the rest the null page
+PAGED_BASE = dict(q="bfloat16", pool="float32", S=1, window=0, KV=8,
+                  hd=128, held=None)
+PAGED_CASES = {
+    "decode-fp32": dict(q="float32", lasts=[17, 60, 130, 255]),
+    "decode-bf16": dict(lasts=[17, 60, 130, 255]),
+    "prefill-ring-wrap": dict(S=16, lasts=[15, 40, 256, 3 * 256 + 77]),
+    "window": dict(q="float32", S=4, lasts=[9, 33, 100, 200], window=40),
+    # one admitted entry: every split but the first has no admitted key
+    "last0": dict(q="float32", lasts=[0, 17, 0, 255]),
+    # slot 2 an idle lane (no page held: every entry the null page)
+    "idle-lane": dict(lasts=[20, 40, 0, 90], held=[2, 3, 0, 6]),
+    "prefill-ring-wrap-window": dict(q="float32", S=16,
+                                     lasts=[15, 300, 3 * 256 + 77, 600],
+                                     window=40),
+    "gqa4": dict(KV=4, lasts=[17, 60, 130, 255]),
+    "gqa4-prefill": dict(q="float32", S=16, KV=4,
+                         lasts=[15, 40, 256, 3 * 256 + 77]),
+    # the other pool dtype and head dims
+    "bf16-pool": dict(pool="bfloat16", S=4, lasts=[9, 33, 100, 200]),
+    "fp32-q-bf16-pool": dict(q="float32", pool="bfloat16",
+                             lasts=[17, 60, 130, 255]),
+    "hd64": dict(hd=64, S=4, lasts=[9, 33, 100, 200]),
+    "hd256": dict(q="float32", hd=256, lasts=[17, 60, 130, 255]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_attention_kernel_matches_plain_version(case):
+    """The CUDA kernel (built with nvcc on first use) against its plain
+    version, fused update and then attention only on the pools it wrote:
+    the output within 1e-2 for bf16 (one output ulp; fp32 sum order) or
+    1e-5 for fp32, the written pool rows bit-equal, every output finite.
+    The ring is split over CTAs (ops.PAGES_PER_SPLIT block-table entries
+    each), so these cases hold splits with no admitted key, an idle lane
+    on the null page, a wrapped ring under a window, GQA 4, both pool
+    dtypes and head dims 64/128/256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    c = dict(PAGED_BASE, **PAGED_CASES[case])
+    dt = getattr(torch, c["q"])
+    x = _inputs(9, B=4, S=c["S"], H=16, KV=c["KV"], hd=c["hd"], P=16,
+                n_pages=65, lasts=c["lasts"], held=c["held"])
+    a, b = _paged_pair(x, dt, getattr(torch, c["pool"]))
+    window = c["window"]
     n = ops.paged_attention_update.launches
     out, _, _ = ops.paged_attention_update(
         a["q"], a["k_new"], a["v_new"], a["k_pool"], a["v_pool"],
@@ -58,10 +107,57 @@ def test_paged_attention_kernel_matches_plain_version(q_dtype, S, lasts,
         b["block_table"], b["last_pos"], window=window)
     torch.cuda.synchronize()
     assert ops.paged_attention_update.launches == n + 1
-    tol = 1e-2 if dt == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    _assert_paged_close(out, want, dt)
     assert torch.equal(a["k_pool"][1:], b["k_pool"][1:])
     assert torch.equal(a["v_pool"][1:], b["v_pool"][1:])
+    # attention only, on the same (now written) pools
+    b["k_pool"][0], b["v_pool"][0] = a["k_pool"][0], a["v_pool"][0]
+    n = ops.paged_attention.launches
+    out = ops.paged_attention(a["q"], a["k_pool"], a["v_pool"],
+                              a["block_table"], a["last_pos"], window=window)
+    want = ref.reference_paged_attention_block(
+        b["q"], b["k_pool"], b["v_pool"], b["block_table"], b["last_pos"],
+        window=window)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == n + 1
+    _assert_paged_close(out, want, dt)
+
+
+@pytest.mark.gpu
+def test_paged_attention_survives_cuda_graph_replay():
+    """The fused update captured once in a CUDA graph and replayed three
+    times on fresh inputs copied into the captured tensors: every replay
+    matches the plain version.  A split-merge ticket that did not reset
+    itself would leave later replays unmerged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape = dict(B=4, S=1, H=16, KV=8, hd=128, P=16, n_pages=65)
+    runs = [_inputs(20 + i, **shape, lasts=lasts) for i, lasts in enumerate(
+        [[17, 60, 130, 255], [18, 0, 300, 40], [5, 61, 3 * 256 + 9, 255],
+         [200, 100, 50, 25]])]
+    a, _ = _paged_pair(runs[0], torch.bfloat16)
+    call = lambda: ops.paged_attention_update(  # noqa: E731
+        a["q"], a["k_new"], a["v_new"], a["k_pool"], a["v_pool"],
+        a["block_table"], a["last_pos"])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # build and load the kernel outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _, _ = call()
+    for x in runs[1:]:
+        fresh, b = _paged_pair(x, torch.bfloat16)
+        for k, v in fresh.items():
+            a[k].copy_(v)
+        graph.replay()
+        want, _, _ = ref.reference_paged_update(
+            b["q"], b["k_new"], b["v_new"], b["k_pool"], b["v_pool"],
+            b["block_table"], b["last_pos"])
+        torch.cuda.synchronize()
+        _assert_paged_close(out, want, torch.bfloat16)
+        assert torch.equal(a["k_pool"][1:], b["k_pool"][1:])
 
 
 @pytest.mark.gpu
@@ -79,12 +175,14 @@ def test_cuda_path_raises_instead_of_falling_back():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,m,n", [(252, 365, 583), (3, 37, 45), (2, 1, 70)])
+@pytest.mark.parametrize("B,m,n", [(252, 365, 583), (3, 37, 45), (2, 1, 70),
+                                   (2, 40, 129), (3, 50, 128), (2, 33, 300)])
 def test_gram_kernel_matches_plain_version(B, m, n):
     """The GreedyTL Gram kernel against its plain version at the HAPT
-    shapes (252 problems, 365 rows, 583 design columns) and ragged ones:
-    within 1e-5 on a unit-scale design (two fp32 sums of m products in
-    different orders) and bit-symmetric."""
+    shapes (252 problems, 365 rows, 583 design columns) and ragged ones
+    (n one column past a 128 tile, n exactly one tile, m one row past a
+    16-row stage): within 1e-5 on a unit-scale design (two fp32 sums of m
+    products in different orders) and bit-symmetric."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from repro_torch.kernels.greedy_scores import ops as gops
