@@ -42,17 +42,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    S=2048): flash attention and the chunked GLA scan held against their
    plain versions (bf16 and fp32; head_dim 64/80/128, GQA, window, chunk
    mask, ragged S; the scan's two modes, Dv 64/128, ragged S, extreme
-   decay, Mamba2's stride-0 views); each model through kernel="cuda" with
-   launch counts from 0 and a spy that fails on any plain-version call,
-   then kernel="torch" (no launch allowed); prefill tokens/s of both
-   routes and a torch.profiler breakdown of the cuda route; the two routes
+   decay, Mamba2's stride-0 views; its final state too); each model
+   through kernel="cuda" with launch counts from 0 (the scan's device
+   kernels per call printed beside its count) and a spy that fails on any
+   plain-version call, then kernel="torch" (no launch allowed); prefill
+   tokens/s of both routes and a torch.profiler breakdown of the cuda
+   route (which fails if the closed-form final state's cumsum still runs
+   on a recurrent model); the two routes
    held to each other on the same weights widened to fp32 (every block
    from the same input, and the logits end to end, with the growth of
    their difference over the blocks), and each bf16 route's distance from
    that fp32 result; each
    kernel timed by CUDA-graph replay at the path's shapes beside its plain
    version, its bound and (flash attention) SDPA, with the achieved
-   TFLOP/s of the bf16 flash kernel and of SDPA.  Every bf16 flash launch
+   TFLOP/s of the bf16 flash kernel and of SDPA and the scan's registers
+   and spills.  Every bf16 flash launch
    of the prefills must go to the tensor-core kernel
    (flash_attention_tc.cu); its ptxas report (registers, shared memory, no
    spills allowed) and its count of HGMMA instructions in the SASS
@@ -650,6 +654,10 @@ FLASH_FP32_TOL = 1e-5
 # 2^-8 = 3.9e-3 relative)
 SCAN_FP32_TOL = 1e-4
 SCAN_BF16_TOL = 1e-2
+# the kernel's final state vs the plain version's (fp32 both, from the same
+# bf16 or fp32 inputs; the chunks' states summed and passed in another
+# order): |err| <= tol * (1 + |want|)
+SCAN_STATE_TOL = 1e-4
 # The two routes, held to each other.  In bf16 they are not comparable bit
 # for bit: both round activations to bf16 (2^-9 relative) at different
 # places (the plain attention rounds its probabilities to bf16 before the
@@ -690,6 +698,29 @@ def scan_bound_ms(B, S, H, Dk, Dv, elem_bytes, q_bytes, ld_bytes):
     once over the HBM rate."""
     byts = q_bytes + ld_bytes + 2 * B * S * H * Dv * elem_bytes
     return roofline_ms(byts, 4 * Dk * Dv * B * S * H)
+
+
+SCAN_KERNELS = ("chunk_state_kernel", "pass_kernel", "output_kernel")
+
+
+def scan_ptxas(_build, sops):
+    """ptxas's registers and spill bytes of the scan's device kernels as
+    the main paths run them (bf16, Dk = 64): {kernel: (registers, spill
+    stores + loads in bytes)}."""
+    out, entry, spill = {}, None, 0
+    for line in _build.build_log("ssm_scan", sops.SOURCES).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            entry = next((k for k in SCAN_KERNELS if k in fn), None)
+            if entry != "pass_kernel" and "I13__nv_bfloat16Li64E" not in fn:
+                entry = None
+        elif entry and "spill stores" in line:
+            spill = sum(int(w) for w in line.replace(",", " ").split()
+                        if w.isdigit()) - int(line.split()[0])
+        elif entry and "Used" in line and "registers" in line:
+            out[entry] = (int(line.split("Used")[1].split()[0]), spill)
+            entry = None
+    return out
 
 
 def flash_tc_report(_build, fops):
@@ -793,10 +824,13 @@ def _scan_inputs(gen, B, S, H, Dk, Dv, dt, *, bonus, decay=None,
     if mamba:
         q = r(B, S, Dk).to(dt)[:, :, None].expand(B, S, H, Dk)
         k = r(B, S, Dk).to(dt)[:, :, None].expand(B, S, H, Dk)
-        z = r(B, S, H)[..., None].expand(B, S, H, Dk)
+        z = r(B, S, H, 1)
     else:
         q, k, z = r(B, S, H, Dk).to(dt), r(B, S, H, Dk).to(dt), r(B, S, H, Dk)
+    # mamba: the activation before the broadcast (an elementwise op on an
+    # expanded view would copy it), so that ld's Dk stride is 0
     ld = -decay * z.abs() if decay else -torch.nn.functional.softplus(z)
+    ld = ld.expand(B, S, H, Dk)
     v = r(B, S, H, Dv).to(dt)
     u = r(H, Dk).abs().to(dt) if bonus else None
     return q, k, v, ld, u
@@ -826,15 +860,22 @@ def check_scan(sops, sref, gen):
                                       decay=decay, mamba=mamba)
         y, st = sops.ssm_scan(q, k, v, ld, u=u)
         want = sref.reference_scan(q, k, v, ld, u=u)
+        pad = (-S) % sref.SUB  # the plain version's state, zero-padded rows
+        _, want_st = sref.chunked_scan(*(torch.nn.functional.pad(
+            a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v, ld)), u=u)
         torch.cuda.synchronize()
         diff = (y.float() - want.float()).abs()
         err = diff.max().item()
         tol = SCAN_BF16_TOL if dt == bf else SCAN_FP32_TOL
         ratio = (diff / (1 + want.float().abs())).max().item() / tol
+        sdiff = (st - want_st).abs()
+        s_ratio = (sdiff / (1 + want_st.abs())).max().item() / SCAN_STATE_TOL
         print(f"ssm_scan {name} (B={B}, S={S}, H={H}, Dk={Dk}, Dv={Dv}, "
               f"{str(dt).split('.')[-1]}): max_abs_err={err:.3g}, worst "
-              f"|err| / (tol * (1 + |want|)) = {ratio:.3g} (tol {tol})")
-        if not (ratio <= 1 and torch.isfinite(y).all()
+              f"|err| / (tol * (1 + |want|)) = {ratio:.3g} (tol {tol}); "
+              f"final state max_abs_err={sdiff.max().item():.3g}, worst "
+              f"ratio {s_ratio:.3g} (tol {SCAN_STATE_TOL})")
+        if not (ratio <= 1 and s_ratio <= 1 and torch.isfinite(y).all()
                 and torch.isfinite(st).all()):
             raise AssertionError(f"ssm_scan {name}: kernel disagrees with "
                                  f"its plain version")
@@ -960,7 +1001,8 @@ def free_running(name, TT, params, cfg, toks, make_prefill_step):
 
 def device_breakdown(card, name, fn):
     """One call of `fn` under torch.profiler: the device's kernel time by
-    kernel name (top five) and its busy share of the wall-clock."""
+    kernel name (top five) and its busy share of the wall-clock.  Returns
+    the number of calls of each host-side ATen op in the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -970,9 +1012,11 @@ def device_breakdown(card, name, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, ops = [], {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.key.startswith("aten::"):
+                ops[e.key] = ops.get(e.key, 0) + e.count
             continue
         t = getattr(e, "self_device_time_total", None)
         rows.append((getattr(e, "self_cuda_time_total", 0) if t is None
@@ -981,13 +1025,14 @@ def device_breakdown(card, name, fn):
     if dev_us == 0:
         print(f"prefill {name} traced [{card}]: device time not measured "
               f"(the trace held no device events)")
-        return
+        return ops
     top = sorted(rows, reverse=True)[:5]
     print(f"prefill {name} traced, kernel=cuda [{card}]: wall "
           f"{1e3 * wall:.1f} ms (profiler on), {1e-3 * dev_us:.1f} ms of "
           f"device kernel time over {sum(r[1] for r in rows)} device events, "
           f"busy share {1e-6 * dev_us / wall:.3f}; top: " + "; ".join(
               f"{k[:60]} x{c} {1e-3 * t:.1f} ms" for t, c, k in top))
+    return ops
 
 
 def _widen(tree):
@@ -1056,7 +1101,8 @@ def prefill_phase(card, gen):
               fops.flash_attention.launches_cuda_core)
         print(f"prefill {arch} (B={B}, S={S}) kernel=cuda: launches flash "
               f"{got[0]} (tensor-core kernel {tc[0]}, CUDA-core kernel "
-              f"{tc[1]}), scan {got[1]} (expected {expect}); plain versions "
+              f"{tc[1]}), scan {got[1]} ({sops.device_kernels()} device "
+              f"kernels per scan call) (expected {expect}); plain versions "
               f"called: {len(plain_calls)}")
         if got != expect or plain_calls or tc != (got[0], 0):
             raise AssertionError(f"{arch}: the prefill did not run through "
@@ -1084,7 +1130,15 @@ def prefill_phase(card, gen):
               f"{[round(w, 4) for w in walls['cuda']]} s, kernel=torch "
               f"{[round(w, 4) for w in walls['torch']]} s; tokens/s (best "
               f"of two) cuda {tps['cuda']:.0f}, torch {tps['torch']:.0f}")
-        device_breakdown(card, arch, lambda: step_c(params, toks))
+        aten = device_breakdown(card, arch, lambda: step_c(params, toks))
+        # the scan kernel writes the final state: the closed form (cumsum,
+        # exp, einsum per layer) must not run on the cuda route
+        n_cumsum = aten.get("aten::cumsum", 0)
+        print(f"prefill {arch} kernel=cuda: aten::cumsum calls in the trace "
+              f"{n_cumsum} (the closed-form final state: gone if 0)")
+        if expect[1] and n_cumsum:
+            raise AssertionError(f"{arch}: the scan's closed-form final "
+                                 f"state still runs")
 
         # the same weights in fp32: the routes held to each other
         params32 = _widen(params)
@@ -1124,6 +1178,8 @@ def prefill_phase(card, gen):
               f"{lib:.4f} ms ({tflop / lib * 1e3:.1f} TFLOP/s), bound "
               f"{bnd:.4f} ms ({by})")
     scan_rows = {}
+    from repro_torch.kernels import _build
+    regs = scan_ptxas(_build, sops)
     for arch, H, mamba in (("zamba2_2_7b", 80, True), ("rwkv6_7b", 64, False)):
         q, k, v, ld, u = _scan_inputs(gen, B, S, H, 64, 64, bf,
                                       bonus=not mamba, mamba=mamba)
@@ -1137,8 +1193,11 @@ def prefill_phase(card, gen):
         scan_rows[arch] = (ms, p_ms, bnd, by)
         print(f"ssm_scan {arch} (B={B}, S={S}, H={H}, Dk=Dv=64, bf16"
               f"{', stride-0 q/k/ld' if mamba else ', bonus'}) [{card}]: "
-              f"kernel {ms:.4f} ms, plain {p_ms:.4f} ms, library -, bound "
-              f"{bnd:.4f} ms ({by})")
+              f"kernel {ms:.4f} ms ({sops.device_kernels()} device kernels), "
+              f"plain {p_ms:.4f} ms, library -, bound {bnd:.4f} ms ({by}); "
+              f"registers, spilled bytes: " + ", ".join(
+                  f"{k} {regs.get(k, ('?', '?'))[0]}, {regs.get(k, ('?', '?'))[1]}"
+                  for k in SCAN_KERNELS))
 
     if fails:
         raise AssertionError("; ".join(fails))

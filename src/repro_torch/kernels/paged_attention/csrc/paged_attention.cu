@@ -36,10 +36,11 @@
 //   barrier, which publishes the partial; the CTA that draws the last
 //   ticket loads all partials at once, merges them by log-sum-exp
 //   rescaling in fp32 and resets the ticket to 0, so that the next launch
-//   (or the next replay of a CUDA graph) finds it so.  The tickets live in
-//   this library's own zero-initialised device memory, shared by all
-//   launches on a device: two launches that run at the same time on two
-//   streams must not both split.  An empty partial (l = 0) is skipped by
+//   (or the next replay of a CUDA graph) finds it so.  The tickets are the
+//   caller's: a zeroed buffer that the wrapper keeps for each CUDA stream
+//   (a launch under graph capture gets its own), so two launches that run
+//   at once on two streams never take each other's tickets; the kernel
+//   keeps no device-global state.  An empty partial (l = 0) is skipped by
 //   selection: it adds no exp(-1e30 - (-1e30)) = 1 term and its acc is
 //   never read.  With n_split = 1 a CTA writes its output directly, with
 //   no scratch and no ticket.  (A thread-block cluster merging through
@@ -97,10 +98,6 @@ constexpr int kMaxTickets = 1 << 14;
 constexpr long long kMaxScratchBytes = 64ll << 20;
 constexpr float kNegInf = -1e30f;
 
-// one ticket per (b, kv, row block) of a splitting launch; each launch
-// leaves every ticket it used at 0
-__device__ unsigned int g_tickets[kMaxTickets];
-
 struct Args {
   const void* q;          // (B, S, H, hd) activation dtype
   const void* k_new;      // (B, S, KV, hd) or null (attention only)
@@ -112,6 +109,8 @@ struct Args {
   const int* last_pos;    // (B,)
   void* out;              // (B, S, H, hd) activation dtype
   float* part;            // the splits' partials, or null when n_split == 1
+  unsigned* tickets;      // one per (b, kv, row block) of a splitting
+                          // launch, 0 before it and left at 0
   int B, S, H, KV, page_size, P, window, pages_per_cta, n_split;
   float scale;
 };
@@ -471,7 +470,7 @@ paged_attention_kernel(const Args a) {
   //    that on to the CTA's other threads)
   __syncthreads();
   if (tid == 0)
-    s_last = take_ticket(&g_tickets[ticket]) == (unsigned)(a.n_split - 1);
+    s_last = take_ticket(&a.tickets[ticket]) == (unsigned)(a.n_split - 1);
   __syncthreads();
   if (!s_last) return;
   for (int i = tid; i < nrows * C; i += kThreads) {
@@ -498,7 +497,7 @@ paged_attention_kernel(const Args a) {
     store4(og + row_off(r0 + j, c),
            make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv));
   }
-  if (tid == 0) g_tickets[ticket] = 0;
+  if (tid == 0) a.tickets[ticket] = 0;
 }
 
 // How the launch is cut: row blocks per (b, kv) and CTAs per ring.  The
@@ -551,22 +550,36 @@ extern "C" long long paged_attention_scratch_floats(int B, int S, int H,
   return plan(B, S, H, KV, head_dim, P, pages_per_split).scratch_floats;
 }
 
+// uint32 tickets a splitting launch may take (the size of the buffer that
+// paged_attention_launch's `tickets` points to), and those a launch with
+// these shapes takes (0: the ring is not split).
+extern "C" int paged_attention_max_tickets(void) { return kMaxTickets; }
+extern "C" int paged_attention_tickets(int B, int S, int H, int KV,
+                                       int head_dim, int P,
+                                       int pages_per_split) {
+  const Plan p = plan(B, S, H, KV, head_dim, P, pages_per_split);
+  return p.n_split > 1 ? B * KV * p.n_rb : 0;
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16.  q_pos may be null (the
 // contiguous block ending at last_pos); k_new/v_new null for attention
-// only; scratch as paged_attention_scratch_floats says.  Returns a
-// cudaError_t code (0 on success); the launch is checked with
-// cudaGetLastError().
+// only; scratch as paged_attention_scratch_floats says; tickets: at least
+// paged_attention_tickets() zeroed uint32 (the launch leaves them at 0),
+// used only when the ring is split.  Returns a cudaError_t code (0 on
+// success); the launch is checked with cudaGetLastError().
 extern "C" int paged_attention_launch(
     int q_dtype, int pool_dtype, int head_dim, const void* q,
     const void* k_new, const void* v_new, void* k_pool, void* v_pool,
     const int* block_table, const int* q_pos, const int* last_pos, void* out,
-    float* scratch, int B, int S, int H, int KV, int page_size, int P,
-    int window, int pages_per_split, float scale, void* stream) {
+    float* scratch, unsigned* tickets, int B, int S, int H, int KV,
+    int page_size, int P, int window, int pages_per_split, float scale,
+    void* stream) {
   const Plan p = plan(B, S, H, KV, head_dim, P, pages_per_split);
-  if (p.n_split > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  if (p.n_split > 1 && (scratch == nullptr || tickets == nullptr))
+    return cudaErrorInvalidValue;
   Args a{q, k_new, v_new, k_pool, v_pool, block_table, q_pos, last_pos, out,
-         p.n_split > 1 ? scratch : nullptr, B, S, H, KV, page_size, P, window,
-         p.n_split > 1 ? pages_per_split : P, p.n_split, scale};
+         p.n_split > 1 ? scratch : nullptr, tickets, B, S, H, KV, page_size,
+         P, window, p.n_split > 1 ? pages_per_split : P, p.n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && pool_dtype == 0)
     return launch_hd<float, float>(a, head_dim, p.n_rb, st);

@@ -18,9 +18,13 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 The kernel splits each slot's ring over CTAs, PAGES_PER_SPLIT
 block-table entries each, and merges the splits' partial softmax results
 in the same launch (the last CTA of each slot and KV head to finish does
-it).  The wrapper allocates the partials' scratch with ``torch.empty``,
-its size from the shapes alone, and reads nothing from the device, so a
-call can be captured in a CUDA graph.  Default query positions are
+it, counted by tickets).  The wrapper allocates the partials' scratch with
+``torch.empty``, its size from the shapes alone, and keeps one zeroed
+ticket buffer per CUDA stream (the kernel leaves it zeroed; a launch under
+graph capture gets tickets of its own, from a pool zeroed beforehand), so
+launches on two streams at once never share tickets.  It reads nothing
+from the device, so a call can be captured in a CUDA graph.  Default
+query positions are
 computed in the kernel, not by the wrapper.  The kernel moves 16 bytes
 at a time, so on the card q, k_new, v_new and the pools must start
 16-byte aligned (every fresh tensor does).
@@ -86,14 +90,50 @@ def bind(lib):
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P,
+        fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P, P,
                        I, I, I, I, I, I, I, I, ctypes.c_float, P]
         fn.restype = ctypes.c_int
         lib.paged_attention_scratch_floats.argtypes = [I] * 7
         lib.paged_attention_scratch_floats.restype = ctypes.c_longlong
+        lib.paged_attention_max_tickets.argtypes = []
+        lib.paged_attention_max_tickets.restype = ctypes.c_int
+        lib.paged_attention_tickets.argtypes = [I] * 7
+        lib.paged_attention_tickets.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_tickets: dict = {}  # (device, stream handle) -> the stream's ticket buffer
+# zeroed tickets cut, a launch's worth at a time, for launches captured in a
+# CUDA graph (allocated beside a device's first stream buffer)
+CAPTURE_POOL_TICKETS = 1 << 20
+_capture_pool: dict = {}  # device index -> [zeroed int32 buffer, next free]
+
+
+def _stream_tickets(lib, dev, stream, need):
+    """The zeroed uint32 tickets of a splitting launch on `stream` (at
+    least `need`): one buffer per (device, stream), kept zeroed by the
+    kernel.  A launch under graph capture gets tickets of its own, so that
+    the graph's replays never meet an eager launch's: cut from a pool
+    zeroed beforehand (the graph then holds no fill of its own), or a
+    fresh zeroed buffer once the pool is spent."""
+    if torch.cuda.is_current_stream_capturing():
+        pool = _capture_pool.get(dev.index)
+        if pool is not None and pool[1] + need <= pool[0].numel():
+            buf = pool[0][pool[1]:pool[1] + need]
+            pool[1] += need
+            return buf
+        return torch.zeros(need, dtype=torch.int32, device=dev)
+    key = (dev.index, stream.cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None:
+        buf = _tickets[key] = torch.zeros(
+            lib.paged_attention_max_tickets(), dtype=torch.int32, device=dev)
+        if dev.index not in _capture_pool:
+            _capture_pool[dev.index] = [torch.zeros(
+                CAPTURE_POOL_TICKETS, dtype=torch.int32, device=dev), 0]
+    return buf
 
 
 def _launch(q, k_new, v_new, k_pool, v_pool, block_table, last_pos,
@@ -141,15 +181,19 @@ def _launch(q, k_new, v_new, k_pool, v_pool, block_table, last_pos,
     pps = pages_per_split or PAGES_PER_SPLIT
     KV, P = k_pool.shape[2], block_table.shape[1]
     n_scratch = lib.paged_attention_scratch_floats(B, S, H, KV, hd, P, pps)
-    scratch = torch.empty(n_scratch, dtype=torch.float32,
-                          device=dev) if n_scratch else None
+    stream = torch.cuda.current_stream(dev)
+    scratch = tickets = None
+    if n_scratch:
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+        need = lib.paged_attention_tickets(B, S, H, KV, hd, P, pps)
+        tickets = _stream_tickets(lib, dev, stream, need)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib.paged_attention_launch(
         KERNEL_DTYPES[q.dtype], KERNEL_DTYPES[k_pool.dtype], hd, ptr(q),
         ptr(k_new), ptr(v_new), ptr(k_pool), ptr(v_pool), ptr(block_table),
-        ptr(q_positions), ptr(last_pos), ptr(out), ptr(scratch), B, S, H,
-        KV, k_pool.shape[1], P, int(window), pps,
-        1.0 / float(hd) ** 0.5, torch.cuda.current_stream(dev).cuda_stream)
+        ptr(q_positions), ptr(last_pos), ptr(out), ptr(scratch),
+        ptr(tickets), B, S, H, KV, k_pool.shape[1], P, int(window), pps,
+        1.0 / float(hd) ** 0.5, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: "

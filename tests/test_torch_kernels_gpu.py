@@ -477,3 +477,226 @@ def test_prefill_path_runs_through_the_kernels(arch, flash, scan):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------- the scan's chunks and final state
+# (the kernel cuts the sequence into chunks of SCAN_CHUNK rows that run in
+# parallel with their states passed between them, and writes the final
+# state itself)
+
+SCAN_CHUNK = 256  # csrc/ssm_scan.cu kChunk
+
+
+def _scan_inputs(seed, B, S, H, Dk, Dv, dt, bonus, decay=1.0, mamba=False):
+    """q, k, v in `dt`, ld = -softplus(N(0, 1)) (or -decay |N(0, 1)| when
+    decay > 1), u for the bonus mode; mamba: q/k stride-0 views over heads
+    and ld over Dk, as mamba2_block passes them."""
+    rng = np.random.default_rng(seed)
+    if mamba:
+        q = _cuda(rng.normal(size=(B, S, 1, Dk)), dt).expand(B, S, H, Dk)
+        k = _cuda(rng.normal(size=(B, S, 1, Dk)), dt).expand(B, S, H, Dk)
+        z = rng.normal(size=(B, S, H, 1))
+    else:
+        q = _cuda(rng.normal(size=(B, S, H, Dk)), dt)
+        k = _cuda(rng.normal(size=(B, S, H, Dk)), dt)
+        z = rng.normal(size=(B, S, H, Dk))
+    ld = _cuda(-np.abs(z) * decay if decay > 1 else -np.log1p(np.exp(z)))
+    if mamba:
+        ld = ld.expand(B, S, H, Dk)
+    v = _cuda(rng.normal(size=(B, S, H, Dv)), dt)
+    u = _cuda(np.abs(rng.normal(size=(H, Dk)))) if bonus else None
+    return q, k, v, ld, u
+
+
+def _plain_scan(sref, q, k, v, ld, u):
+    """The plain version's y and its final state (the state of a run on the
+    sequence zero-padded to whole 16-row sub-chunks)."""
+    S = q.shape[1]
+    pad = (-S) % sref.SUB
+    _, st = sref.chunked_scan(*(torch.nn.functional.pad(
+        a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v, ld)), u=u)
+    return sref.reference_scan(q, k, v, ld, u=u), st
+
+
+def _assert_scan_close(y, st, want_y, want_st, dt):
+    """y within 1e-4 (fp32: sums in another order) or 1e-2 (bf16: y
+    rounded once) of the plain version; the fp32 final state within
+    1e-4 * (1 + |want|) of the plain version's (the chunks' states are
+    summed and passed in another order than its sub-chunks'); finite."""
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    assert st.dtype == torch.float32
+    torch.testing.assert_close(st, want_st, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,Dk,Dv,bonus,mamba", [
+    (1, 64, 64, False, False),                  # S = 1
+    (1, 64, 64, True, False),
+    (37, 32, 64, True, False),                  # S below one chunk
+    (SCAN_CHUNK, 64, 64, False, True),          # S exactly one chunk
+    (SCAN_CHUNK + 1, 64, 128, True, False),     # one row into a 2nd chunk
+    (SCAN_CHUNK + 1, 128, 64, False, True),
+    (1000, 128, 128, True, False),              # ragged S
+    (1000, 32, 64, False, True),
+    (777, 64, 128, False, False),
+    (256, 128, 64, True, True),                 # bonus, one decay per row
+])
+def test_ssm_scan_chunk_edges(dtype, S, Dk, Dv, bonus, mamba):
+    """The chunked kernel at chunk edges (S = 1, below a chunk, exactly
+    one, one row past, ragged), both modes, Dk 32/64/128, Dv 64/128, the
+    stride-0 Mamba2 views: y and the final state against the plain
+    version (tolerances in _assert_scan_close); one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    dt = getattr(torch, dtype)
+    q, k, v, ld, u = _scan_inputs(S * Dk + Dv, 2, S, 3, Dk, Dv, dt, bonus,
+                                  mamba=mamba)
+    n = sops.ssm_scan.launches
+    y, st = sops.ssm_scan(q, k, v, ld, u=u)
+    want_y, want_st = _plain_scan(sref, q, k, v, ld, u)
+    torch.cuda.synchronize()
+    assert sops._lib().ssm_scan_chunk_rows() == SCAN_CHUNK
+    assert sops.ssm_scan.launches == n + 1
+    assert y.dtype == dt and y.shape == v.shape
+    assert st.shape == (2, 3, Dk, Dv)
+    _assert_scan_close(y, st, want_y, want_st, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bonus,mamba", [(False, False), (True, False),
+                                         (False, True), (True, True)])
+def test_ssm_scan_extreme_decay_chunks(bonus, mamba):
+    """Decays of -30 |N(0, 1)| per step over several chunks (|cum| in the
+    thousands, where a factorised exp(cum) . exp(-cum) would overflow),
+    per-channel and per-row (stride-0) decays: y and the final state
+    finite and within tolerance of the plain version (_assert_scan_close),
+    and of the exact sequential scan: the state within 1e-4 * (1 + |want|),
+    y within 1e-3 * (1 + |want|).  Why 1e-3 for y there: a 16-row
+    sub-chunk's fp32 cumsum reaches |cum| ~ 1000 here (one ulp 6e-5), and
+    the exponents of the kernel and of the plain version (which round
+    alike) carry that ulp, up to ~2e-4 relative off the exact scan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    from repro_torch.models.ssm import gla_scan_exact
+    q, k, v, ld, u = _scan_inputs(7 + bonus + 2 * mamba, 1, 300, 4, 64, 64,
+                                  torch.float32, bonus, decay=30.0,
+                                  mamba=mamba)
+    y, st = sops.ssm_scan(q, k, v, ld, u=u)
+    want_y, want_st = _plain_scan(sref, q, k, v, ld, u)
+    exact_y, exact_st = gla_scan_exact(q, k, v, ld, u=u)
+    torch.cuda.synchronize()
+    _assert_scan_close(y, st, want_y, want_st, torch.float32)
+    torch.testing.assert_close(y, exact_y.float(), rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(st, exact_st, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bonus", [False, True])
+def test_ssm_scan_final_state_matches_closed_form(bonus):
+    """The kernel's final state against ops.final_state, the closed form
+    the CPU route returns: within 1e-3 * (1 + |want|).  The closed form
+    sums ld over the whole sequence in fp32 (|cum| ~ 200 at S = 256, one
+    ulp 1.5e-5) and clamps its exponents at -30; its exponents are then a
+    few 1e-5 off, the kernel's not (it sums each chunk's weights from the
+    chunk's end), and the clamp moves a term by under e^-30 |k||v|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.ssm_scan import ops as sops
+    q, k, v, ld, u = _scan_inputs(11 + bonus, 2, 256, 4, 64, 64,
+                                  torch.float32, bonus)
+    _, st = sops.ssm_scan(q, k, v, ld, u=u)
+    want = sops.final_state(k, v, ld)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(st, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mamba", [False, True])
+def test_ssm_scan_survives_cuda_graph_replay(mamba):
+    """One call captured in a CUDA graph and replayed three times on fresh
+    inputs copied into the captured tensors: each replay gives the same y
+    and final state, bit for bit, as an eager call on those inputs (the
+    kernel keeps nothing on the device between launches; its scratch is
+    the call's).  mamba: q/k/ld passed as stride-0 views of the captured
+    tensors, as mamba2_block passes them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.ssm_scan import ops as sops
+    B, S, H, D = 2, 200, 4, 64
+    hq, dl = (1, 1) if mamba else (H, D)
+
+    def inputs(seed):  # the tensors themselves, before any broadcast
+        rng = np.random.default_rng(seed)
+        bf = torch.bfloat16
+        return (_cuda(rng.normal(size=(B, S, hq, D)), bf),
+                _cuda(rng.normal(size=(B, S, hq, D)), bf),
+                _cuda(rng.normal(size=(B, S, H, D)), bf),
+                _cuda(-np.log1p(np.exp(rng.normal(size=(B, S, H, dl))))),
+                _cuda(np.abs(rng.normal(size=(H, D)))))
+
+    def call(q, k, v, ld, u):
+        e = lambda t: t.expand(B, S, H, D)  # noqa: E731
+        return sops.ssm_scan(e(q), e(k), v, e(ld), u=None if mamba else u)
+
+    held = inputs(30)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(*held)  # build and load the kernel outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = sops.ssm_scan.launches
+    with torch.cuda.graph(graph):
+        y, st = call(*held)
+    assert sops.ssm_scan.launches == n + 1
+    for seed in (31, 32, 33):
+        fresh = inputs(seed)
+        for dst, src in zip(held, fresh):
+            dst.copy_(src)
+        graph.replay()
+        want_y, want_st = call(*fresh)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y) and torch.equal(st, want_st)
+
+
+@pytest.mark.gpu
+def test_paged_attention_two_streams_at_once():
+    """Two splitting launches that run at the same time on two streams,
+    many times over, each on its own inputs: both outputs match the plain
+    version.  Each stream has its own tickets; tickets shared by the two
+    would let one launch merge the other's partials."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape = dict(B=4, S=1, H=16, KV=8, hd=128, P=16, n_pages=65)
+    xs = [_inputs(40 + i, **shape, lasts=lasts) for i, lasts in enumerate(
+        [[17, 60, 130, 255], [200, 100, 3 * 256 + 9, 25]])]
+    pairs = [_paged_pair(x, torch.bfloat16) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):  # hold both queues while they fill, so
+            torch.cuda._sleep(20_000_000)  # their launches then run at once
+    outs = [[], []]
+    for _ in range(50):
+        for i, (s, (a, _)) in enumerate(zip(streams, pairs)):
+            with torch.cuda.stream(s):
+                out, _, _ = ops.paged_attention_update(
+                    a["q"], a["k_new"], a["v_new"], a["k_pool"],
+                    a["v_pool"], a["block_table"], a["last_pos"])
+                outs[i].append(out)
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    for i, (_, b) in enumerate(pairs):
+        want, _, _ = ref.reference_paged_update(
+            b["q"], b["k_new"], b["v_new"], b["k_pool"], b["v_pool"],
+            b["block_table"], b["last_pos"])
+        torch.cuda.synchronize()
+        for out in outs[i]:
+            _assert_paged_close(out, want, torch.bfloat16)
