@@ -13,7 +13,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    a wrapped ring, null-page padding and an idle lane, slots at position 0
    (every split but one without an admitted key), a wrapped ring under a
    window at S=16, GQA 4 and a bf16 pool; the GreedyTL Gram and scores kernels at the
-   HAPT shapes, a ragged case and a case with many selected columns;
+   HAPT shapes, a ragged case and a case with many selected columns, and
+   the scores kernel on the edge rows of its argmax rule (NaN, +-0, ties
+   across lanes and passes, rows of -inf; scores_edge_rows) at n = 1 to
+   16384;
 3. serve full-width qwen3_0_6b (28 layers, random bf16 weights from a
    seed, fp32 page pool) through ContinuousBatcher with the paged layout,
    lazy allocation and kernel="cuda": greedy and sampled requests, one
@@ -34,7 +37,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    only at a tie of the top two scores) and agreeing F-measures; print the
    F rows beside Cloud and the overhead report; time both kernels by
    CUDA-graph replay (Gram's TFLOP/s beside torch.bmm's, and whether G is
-   bit-equal to the plain version), and each route's wall-clock with a
+   bit-equal to the plain version; the scores kernel back to back and
+   inside one captured GreedyTL pick, with its plan and its ptxas
+   registers and spills), and each route's wall-clock with a
    stage breakdown and the device's busy share from a torch.profiler
    trace;
 7. the no-cache prefill (``make_prefill_step``) of full-width qwen3_0_6b,
@@ -326,11 +331,79 @@ def check_gram(gops, gref, gen, cases):
     return worst
 
 
-def check_scores(gops, gref, gen, cases, lam=3.0):
+def scores_edge_rows(n, lam=3.0):
+    """Rows (numpy: corr, diag (R, n) float32, selected (R, n) bool) on
+    the edges of the scores kernel's argmax rule: every column selected;
+    NaN first, mid-row and last (the first NaN wins); +0 and -0 tied;
+    diag + lam = 0 (+inf, and NaN where corr is 0 too); equal top scores
+    planted across lanes, warps, teams and passes (the lowest index wins);
+    every score -inf; -inf beside one selected column (-1e30 wins); and a
+    random row.  Columns collapse where n is small."""
+    import numpy as np
+    rng = np.random.default_rng(n)
+    rows = []
+
+    def row():
+        c = rng.normal(size=n).astype(np.float32)
+        d = (rng.random(n) + 0.05).astype(np.float32)
+        return c, d, rng.random(n) < 0.2
+
+    c, d, m = row()
+    rows.append((c, d, np.ones(n, bool)))                  # all selected
+    for at in (0, n // 2, n - 1):                          # NaN
+        c, d, m = row()
+        c[at] = np.nan
+        c[min(at + 3, n - 1)] = np.nan                     # a later NaN
+        m[at] = False
+        rows.append((c, d, m))
+    c, d, m = row()                                        # +0 / -0 ties
+    c[:] = 0.0
+    d[:] = np.where(np.arange(n) % 2 == 1, -lam - 1.0, 1.0)
+    m[:] = False
+    m[0] = n > 1
+    rows.append((c, d, m))
+    c, d, m = row()                                        # diag + lam = 0
+    d[[n // 3, n - 1]] = -lam
+    c[[n // 3, n - 1]] = 1.0
+    m[[n // 3, n - 1]] = False
+    rows.append((c.copy(), d.copy(), m.copy()))
+    c[n - 1] = 0.0                                         # 0 / 0: NaN
+    rows.append((c, d, m))
+    for cols in ([n - 1, 5, 37], [2 * n // 3, n // 3 + 1, 33],
+                 [1, 1 + 32, 1 + 24 * 32], [3 + 24 * 256, 3],
+                 [n - 1, n - 2]):
+        cols = [j % n for j in cols]                       # planted ties
+        c, d, m = row()
+        c[cols], d[cols], m[cols] = 1e3, 1.0, False
+        rows.append((c, d, m))
+    c, d, m = row()                                        # all -inf
+    c[:], d[:], m[:] = np.inf, -lam - 1.0, False
+    rows.append((c.copy(), d.copy(), m.copy()))
+    m[n // 2] = True
+    rows.append((c, d, m))
+    rows.append(row())
+    return tuple(np.stack(a) for a in zip(*rows))
+
+
+def same_scores(s, want):
+    """Scores equal bit for bit but for NaN's payload: NaN at the same
+    places, elsewhere the same values and the same signs of zero."""
+    import torch
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(s), nan):
+        return False
+    s, want = s.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
+    return torch.equal(s, want) and torch.equal(torch.signbit(s),
+                                                torch.signbit(want))
+
+
+def check_scores(gops, gref, gen, cases, lam=3.0, edge_ns=()):
     """Scores kernel vs plain version: scores within SCORES_RTOL and the
     argmax indices equal, except where the plain version's scores at the
     two indices are equal (a tie); a planted tie must go to the lowest
-    index.  Returns the max abs error of the unselected scores."""
+    index.  Then scores_edge_rows(n) at each n of edge_ns: scores equal
+    but for NaN's payload, and the same argmax in every row.  Returns the
+    max abs error of the unselected scores."""
     import torch
     worst = 0.0
     for name, B, n, p_sel, tie in cases:
@@ -360,7 +433,77 @@ def check_scores(gops, gref, gen, cases, lam=3.0):
             raise AssertionError(f"scores_argmax {name}: kernel disagrees "
                                  f"with its plain version")
         worst = max(worst, err)
+    for n in edge_ns:
+        corr, diag, sel = (torch.from_numpy(a).cuda()
+                           for a in scores_edge_rows(n, lam))
+        s, idx = gops.scores_argmax(corr, diag, sel, lam)
+        want, widx = gref.reference_scores(corr, diag, sel, lam)
+        torch.cuda.synchronize()
+        same = same_scores(s, want)
+        team = gops.scores_plan(len(sel), n, gops._sm_count(sel.device))[0]
+        print(f"scores_argmax edge rows (n={n}, team {team} lanes): scores "
+              f"equal to the plain version's {same}; argmax {idx.tolist()} "
+              f"(plain {widx.tolist()})")
+        if not (same and torch.equal(idx, widx)):
+            raise AssertionError(f"scores_argmax edge rows (n={n}): kernel "
+                                 f"disagrees with its plain version")
     return worst
+
+
+def pick_inputs(B, m, n, kappa, t, gen, lam=3.0, device="cuda"):
+    """GreedyTL's state before pick t at the given shape: G = Z^T Z / m and
+    c = Z^T y / m of a random design, picks 0 .. t - 1 made by the plain
+    path, and the ridge re-fit w on them.  Returns the arguments of
+    greedytl.greedy_pick but for t, lam and score."""
+    import torch
+    from repro_torch.core import greedytl
+    from repro_torch.kernels.greedy_scores import ref as gref
+    Z = torch.randn(B, m, n, generator=gen, device=device)
+    y = torch.randn(B, m, generator=gen, device=device).sign()
+    G = Z.mT @ Z / m
+    c = (Z.mT @ y[..., None])[..., 0] / m
+    diag = torch.diagonal(G, dim1=1, dim2=2).contiguous()
+    rows = torch.arange(B, device=device)
+    slots = torch.arange(kappa, device=device)
+    idx = torch.full((B, kappa), -1, dtype=torch.long, device=device)
+    G_cols = torch.zeros(B, n, kappa, device=device)
+    selected = torch.zeros(B, n, dtype=torch.bool, device=device)
+    for k in range(t + 1):
+        w = greedytl._masked_ridge_solve(G_cols, c, idx, slots < k, lam)
+        if k < t:
+            greedytl.greedy_pick(G, c, diag, G_cols, w, idx, selected, rows,
+                                 k, lam, gref.reference_scores)
+    return G, c, diag, G_cols, w, idx, selected, rows
+
+
+def pick_ms(state, t, score, lam=3.0, iters=10, reps=10, rounds=5):
+    """Device time of one GreedyTL pick after its ridge re-fit
+    (greedytl.greedy_pick: residual correlation, `score`, index updates),
+    captured in a CUDA graph as its kernels run back to back in the loop;
+    beside it the same pick with `score` replaced by its precomputed
+    result: the difference is the scores' time inside the pick.  Each
+    replayed pick ends by restoring `selected`, so every replay picks the
+    same columns and gathers the same column of G on both sides (a pick
+    that selected a new column each replay would gather a column of G not
+    yet in L2 where the other side does not).  The two are timed in turns,
+    `rounds` times; returns their medians (pick ms, pick without the
+    scores ms).  The state's idx and G_cols are overwritten."""
+    from repro_torch.core import greedytl
+    G, c, diag, G_cols, w, idx, selected, rows = state
+    before = selected.clone()
+    fixed = score(c - (G_cols @ w[:, :, None])[:, :, 0], diag, selected, lam)
+
+    def pick(fn):
+        def run():
+            greedytl.greedy_pick(G, c, diag, G_cols, w, idx, selected, rows,
+                                 t, lam, fn)
+            selected.copy_(before)
+        return run
+    times = [(time_ms(pick(score), iters, reps),
+              time_ms(pick(lambda *a: fixed), iters, reps))
+             for _ in range(rounds)]
+    return (sorted(a for a, _ in times)[rounds // 2],
+            sorted(b for _, b in times)[rounds // 2])
 
 
 def step_scores(G, c, prefix, lam):
@@ -538,7 +681,8 @@ def learning_phase(card, gen):
         ("HAPT", B, n, 32 / n, False),
         ("ragged", 5, 45, 0.2, False),
         ("many selected", B, n, 0.9, False),
-        ("planted tie", 4, n, 0.5, True)])
+        ("planted tie", 4, n, 0.5, True)],
+        edge_ns=(1, 31, 32, 33, n, 4097, 16384))
 
     # the main path: counts from 0, and no plain version may run on it
     plain_calls = []
@@ -614,15 +758,27 @@ def learning_phase(card, gen):
     s_ms = time_ms(lambda: gops.scores_argmax(corr, diag, sel, 3.0))
     s_plain = time_ms(lambda: gref.reference_scores(corr, diag, sel, 3.0))
     s_bound, s_by = scores_bound_ms(B, n)
+    p_ms, p_rest = pick_ms(pick_inputs(B, m, n, 64, 32, gen), 32,
+                           gops.scores_argmax)
     print(f"gram (B={B}, m={m}, n={n}) [{card}]: kernel {g_ms:.4f} ms, "
           f"plain {g_plain:.4f} ms, torch.bmm {g_lib:.4f} ms, bound "
           f"{g_bound:.4f} ms ({g_by}); TFLOP/s of the minimal count "
           f"{g_flop / g_ms * 1e-9:.1f} (kernel), "
           f"{g_flop / g_lib * 1e-9:.1f} (torch.bmm, which computes both "
           f"halves); G bit-equal to the plain version: {g_equal}")
-    print(f"scores_argmax (B={B}, n={n}) [{card}]: kernel {s_ms:.4f} ms, "
-          f"plain {s_plain:.4f} ms, library -, bound {s_bound:.5f} ms "
-          f"({s_by})")
+    print(f"scores_argmax (B={B}, n={n}) [{card}]: kernel {s_ms:.4f} ms "
+          f"(back to back), plain {s_plain:.4f} ms, library -, bound "
+          f"{s_bound:.5f} ms ({s_by}); plan (lanes, columns a pass, problems "
+          f"per CTA) "
+          f"{gops.scores_plan(B, n, gops._sm_count(corr.device))}")
+    from repro_torch.kernels import _build
+    print("scores_argmax_kernel ptxas (lanes per problem: registers, spilled "
+          "bytes): " + ", ".join(f"{t}: {r}, {sp}" for t, (r, sp) in sorted(
+              scores_ptxas(_build, gops).items())))
+    print(f"GreedyTL pick 32 of 64 after its ridge re-fit (B={B}, n={n}), "
+          f"one CUDA graph, median of 5 [{card}]: {p_ms:.4f} ms, without the "
+          f"scores {p_rest:.4f} ms: scores inside the pick "
+          f"{p_ms - p_rest:.4f} ms")
     src = "src/repro_torch/kernels/greedy_scores/csrc/greedy_scores.cu"
     tpu = "src/repro/kernels/greedy_scores/greedy_scores.py"
     return [
@@ -720,6 +876,26 @@ def scan_ptxas(_build, sops):
         elif entry and "Used" in line and "registers" in line:
             out[entry] = (int(line.split("Used")[1].split()[0]), spill)
             entry = None
+    return out
+
+
+def scores_ptxas(_build, gops):
+    """ptxas's registers and spill bytes of the scores kernel, per team
+    width it is built for: {lanes: (registers, spill stores + loads in
+    bytes)}."""
+    import re
+    out, team, spill = {}, None, 0
+    for line in _build.build_log("greedy_scores", gops.SOURCES).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            hit = re.search(r"scores_argmax_kernelILi(\d+)E", fn)
+            team = int(hit.group(1)) if hit else None
+        elif team and "spill stores" in line:
+            spill = sum(int(w) for w in line.replace(",", " ").split()
+                        if w.isdigit()) - int(line.split()[0])
+        elif team and "Used" in line and "registers" in line:
+            out[team] = (int(line.split("Used")[1].split()[0]), spill)
+            team = None
     return out
 
 

@@ -88,6 +88,28 @@ def _masked_ridge_solve(G_cols, c, idx, valid, lam):
     return torch.where(valid, w, 0.0)
 
 
+def greedy_pick(G, c, diag, G_cols, w, idx, selected, rows, t: int,
+                lam: float, score):
+    """Pick t of every problem, in place, given w, the ridge re-fit on the
+    t columns picked so far: the residual correlation, the candidates'
+    scores and argmax (``score``: the scores kernel's wrapper or its plain
+    version), and the pick written into idx[:, t], selected and
+    G_cols[:, :, t].
+
+    G: (B, n, n), c and diag: (B, n), G_cols: (B, n, kappa), w: (B,
+    kappa), idx: (B, kappa) int64, selected: (B, n) bool, rows: arange(B)
+    on G's device.  Launches a fixed sequence of device kernels and reads
+    nothing back, so it can be captured in a CUDA graph (the batched solve
+    before it cannot)."""
+    # residual correlation r_j = c_j - sum_{s in S} G[j, s] w_s
+    r_corr = c - (G_cols @ w[:, :, None])[:, :, 0]
+    _, j = score(r_corr, diag, selected, lam)
+    j = j.long()
+    idx[:, t] = j
+    selected.scatter_(1, j[:, None], True)
+    G_cols[:, :, t] = G[rows, :, j]
+
+
 def greedytl_from_gram(G, c, kappa: int, lam: float,
                        kernel: str = "cuda") -> GreedyTLModel:
     """Run greedy forward selection given Gram statistics.
@@ -112,15 +134,9 @@ def greedytl_from_gram(G, c, kappa: int, lam: float,
     G_cols = torch.zeros(B, n, kappa, dtype=G.dtype, device=G.device)
     selected = torch.zeros(B, n, dtype=torch.bool, device=G.device)
     for t in range(kappa):
-        valid = slots < t
-        w = _masked_ridge_solve(G_cols, c, idx, valid, lam)
-        # residual correlation r_j = c_j - sum_{s in S} G[j, s] w_s
-        r_corr = c - (G_cols @ w[:, :, None])[:, :, 0]
-        _, j = score(r_corr, diag, selected, lam)
-        j = j.long()
-        idx[:, t] = j
-        selected[rows, j] = True
-        G_cols[:, :, t] = G[rows, :, j]
+        w = _masked_ridge_solve(G_cols, c, idx, slots < t, lam)
+        greedy_pick(G, c, diag, G_cols, w, idx, selected, rows, t, lam,
+                    score)
 
     w = _masked_ridge_solve(G_cols, c, idx,
                             torch.ones_like(slots, dtype=torch.bool), lam)

@@ -51,16 +51,33 @@
 //   columns, and the row's argmax (the lowest index on a tie, NaN counted
 //   as the largest value, as torch.argmax and jnp.argmax do).  corr, diag
 //   (B, n) fp32, selected (B, n) bool -> scores (B, n) fp32, idx (B,) int32.
-//   What bounds it: bytes (13 bytes in, 4 out per element, 3 flops).
-//   Design: one CTA per row; each thread scores a strided share of the
-//   columns and keeps its best (value, index), then a warp-shuffle and a
-//   shared-memory reduction pick the row's argmax in the same launch (the
-//   TPU version reduces per-block pairs on the host side of the op).
+//   What bounds it: by its bytes (13 in, 4 out per element, 3 flops) it
+//   would take 0.57 us at the HAPT shape (B = 252, n = 583), but there its
+//   1.9 MB sit in L2 or close to it, so the time is latency: the launch and
+//   the grid's drain, one round trip to memory, the scores and stores, and
+//   the reduction.  Design:
+//   - a team of kTeam lanes per problem (32, 64, 128 or 256) and kCols
+//     columns a lane per pass (4 or 8), picked by ops.py's scores_plan
+//     from B, n and the SM count: as wide as gives each lane two columns
+//     and the problems' share of the card allows, problems packed into
+//     CTAs only while every SM still gets one.  Lane l owns columns l,
+//     l + kTeam, ... and issues a pass's loads of corr, diag and the mask
+//     before its first score, so a row costs one round trip a pass.  Few
+//     columns a pass keep the unrolled code short: the kernel runs for a
+//     couple of microseconds, and a longer body (24 columns a lane) cost
+//     more in instruction fetch than its loads in flight saved;
+//   - each (score, column) is one 64-bit key whose unsigned order is the
+//     argmax's rule, so a lane's best is an integer max with no branch,
+//     and a warp's is two redux.sync (score part, then column part); a team
+//     of several warps passes its warps' keys through shared memory behind
+//     a named barrier of its own warps: no CTA-wide barrier.
 //   The division is IEEE-rounded (nvcc's default -prec-div=true), so the
-//   scores equal the plain version's bit for bit.
+//   scores equal the plain version's bit for bit.  tools/scores_tiles.py
+//   sweeps every plan against the kernel this one replaced (one 256-thread
+//   CTA per problem), times programmatic dependent launch (measured, and
+//   left out: it saved nothing where the kernel before is another one) and
+//   other variants, and copies cut short step by step.
 #include <cuda_runtime.h>
-#include <math_constants.h>
-#include <climits>
 #include <stdint.h>
 
 namespace {
@@ -83,7 +100,7 @@ constexpr size_t kGramSmem =
     (kStages * kStageFloats > kTile * kCStride ? kStages * kStageFloats
                                                : kTile * kCStride) *
     sizeof(float);
-constexpr int kScoreThreads = 256;
+constexpr int kScoreCta = 256;  // threads per scores CTA at most
 constexpr float kNegInf = -1e30f;
 
 // 4 bytes global -> shared, asynchronously; zero-filled when !valid (the
@@ -268,60 +285,109 @@ gram_kernel(const float* __restrict__ Z, float* __restrict__ G, int m, int n,
   }
 }
 
-// Is (v, i) a better argmax candidate than (bv, bi)?
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  const bool vn = v != v, bn = bv != bv;
-  if (vn != bn) return vn;
-  if (!vn && v != bv) return v > bv;
-  return i < bi;
+// A score and its column as one key whose unsigned order is the argmax's:
+// the score's bits mapped to an order-preserving integer (-0 taken as +0,
+// every NaN as the largest value) above the column's complement (so a tie
+// goes to the lowest column).  Key 0 lies below every column's key.
+__device__ __forceinline__ unsigned long long argmax_key(float s, int j) {
+  unsigned u = __float_as_uint(__fadd_rn(s, 0.f));  // -0 + 0 = +0
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  if (s != s) u = 0xffffffffu;
+  return (static_cast<unsigned long long>(u) << 32) |
+         (0xffffffffu - static_cast<unsigned>(j));
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, o);
-    const int oi = __shfl_down_sync(0xffffffffu, i, o);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+__device__ __forceinline__ int key_column(unsigned long long key) {
+  return static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
 }
 
-__global__ void __launch_bounds__(kScoreThreads)
+// The largest key among a warp's lanes, in every lane: the largest score
+// part, then the largest column part among the lanes that hold it (two
+// redux.sync; lanes with nothing to give pass key 0).
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long k) {
+  const unsigned hi = static_cast<unsigned>(k >> 32);
+  const unsigned top = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned lo = __reduce_max_sync(
+      0xffffffffu, hi == top ? static_cast<unsigned>(k) : 0u);
+  return (static_cast<unsigned long long>(top) << 32) | lo;
+}
+
+// The warps of one team, and no other, meet here (named barrier 1 + team;
+// 0 is __syncthreads').
+__device__ __forceinline__ void team_barrier(int team, int lanes) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "r"(lanes) : "memory");
+}
+
+template <int kTeam, int kCols>
+__global__ void __launch_bounds__(kScoreCta)
 scores_argmax_kernel(const float* __restrict__ corr,
                      const float* __restrict__ diag,
                      const uint8_t* __restrict__ selected,
                      float* __restrict__ scores, int* __restrict__ best_idx,
-                     int n, float lam) {
-  const size_t off = static_cast<size_t>(blockIdx.x) * n;
-  float best = -CUDART_INF_F;
-  int bi = INT_MAX;
-  for (int j = threadIdx.x; j < n; j += kScoreThreads) {
-    const float c = corr[off + j];
-    const float s = selected[off + j] ? kNegInf : (c * c) / (diag[off + j] + lam);
-    scores[off + j] = s;
-    if (better(s, j, best, bi)) {
-      best = s;
-      bi = j;
+                     int B, int n, float lam) {
+  static_assert(kTeam % 32 == 0 && kTeam <= kScoreCta, "whole warps");
+  const int team = threadIdx.x / kTeam, lane = threadIdx.x % kTeam;
+  const int b = blockIdx.x * (blockDim.x / kTeam) + team;
+  if (b >= B) return;  // a whole team leaves: its barrier is its own
+  const size_t off = static_cast<size_t>(b) * n;
+  const float* cr = corr + off;
+  const float* dr = diag + off;
+  const uint8_t* sr = selected + off;
+  float* out = scores + off;
+  unsigned long long best = 0;  // this lane's best key
+  for (int j0 = lane; j0 < n; j0 += kTeam * kCols) {
+    // 1. the pass's loads, all issued before the first score
+    float c[kCols], d[kCols], q[kCols];
+    uint8_t m[kCols];
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int j = j0 + k * kTeam;
+      c[k] = j < n ? cr[j] : 1.f;
+      d[k] = j < n ? dr[j] : 1.f;
+      m[k] = j < n ? sr[j] : 1;
+    }
+    // 2. the pass's scores
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) q[k] = (c[k] * c[k]) / (d[k] + lam);
+    // 3. stored, and the lane's best
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int j = j0 + k * kTeam;
+      if (j < n) {
+        const float s = m[k] ? kNegInf : q[k];
+        out[j] = s;
+        const unsigned long long key = argmax_key(s, j);
+        best = key > best ? key : best;
+      }
     }
   }
-  warp_argmax(best, bi);
+  // 4. the team's argmax
+  best = warp_max(best);
+  if constexpr (kTeam > 32) {
+    constexpr int kWarps = kTeam / 32;
+    __shared__ unsigned long long wk[kScoreCta / 32];
+    const int w = threadIdx.x / 32;
+    if (lane % 32 == 0) wk[w] = best;
+    team_barrier(team, kTeam);
+    if (lane < 32) best = warp_max(lane < kWarps ? wk[w + lane] : 0);
+  }
+  if (lane == 0) best_idx[b] = key_column(best);
+}
 
-  __shared__ float wv[kScoreThreads / 32];
-  __shared__ int wi[kScoreThreads / 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    wv[warp] = best;
-    wi[warp] = bi;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    best = lane < kScoreThreads / 32 ? wv[lane] : -CUDART_INF_F;
-    bi = lane < kScoreThreads / 32 ? wi[lane] : INT_MAX;
-    warp_argmax(best, bi);
-    if (lane == 0) best_idx[blockIdx.x] = bi;
-  }
+template <int kTeam>
+cudaError_t launch_scores(dim3 grid, dim3 block, cudaStream_t stream,
+                          int cols, const float* corr, const float* diag,
+                          const uint8_t* selected, float* scores, int* idx,
+                          int B, int n, float lam) {
+  if (cols == 4)
+    scores_argmax_kernel<kTeam, 4><<<grid, block, 0, stream>>>(
+        corr, diag, selected, scores, idx, B, n, lam);
+  else if (cols == 8)
+    scores_argmax_kernel<kTeam, 8><<<grid, block, 0, stream>>>(
+        corr, diag, selected, scores, idx, B, n, lam);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -342,16 +408,37 @@ extern "C" int greedy_gram_launch(const float* Z, float* G, int B, int m,
 }
 
 // scores (B, n) and idx (B,) from corr, diag (B, n) fp32 and selected
-// (B, n) bool; contiguous.  Returns the cudaError_t of the launch.
+// (B, n) bool; contiguous.  The plan (ops.py scores_plan): team, lanes per
+// problem (32, 64, 128 or 256); cols, columns a lane loads per pass (4 or
+// 8); per_cta, problems per CTA (team * per_cta <= 256).  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int greedy_scores_argmax_launch(const float* corr,
                                            const float* diag,
                                            const uint8_t* selected,
                                            float* scores, int* idx, int B,
-                                           int n, float lam, void* stream) {
-  scores_argmax_kernel<<<B, kScoreThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      corr, diag, selected, scores, idx, n, lam);
-  return cudaGetLastError();
+                                           int n, float lam, int team,
+                                           int cols, int per_cta,
+                                           void* stream) {
+  if (B < 1 || n < 1 || per_cta < 1 || team * per_cta > kScoreCta)
+    return cudaErrorInvalidValue;
+  const dim3 grid((B + per_cta - 1) / per_cta), block(team * per_cta);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (team) {
+    case 32:
+      return launch_scores<32>(grid, block, st, cols, corr, diag, selected,
+                               scores, idx, B, n, lam);
+    case 64:
+      return launch_scores<64>(grid, block, st, cols, corr, diag, selected,
+                               scores, idx, B, n, lam);
+    case 128:
+      return launch_scores<128>(grid, block, st, cols, corr, diag, selected,
+                                scores, idx, B, n, lam);
+    case 256:
+      return launch_scores<256>(grid, block, st, cols, corr, diag, selected,
+                                scores, idx, B, n, lam);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* greedy_scores_error_string(int code) {

@@ -700,3 +700,196 @@ def test_paged_attention_two_streams_at_once():
         torch.cuda.synchronize()
         for out in outs[i]:
             _assert_paged_close(out, want, torch.bfloat16)
+
+
+# --------------------------------- the scores kernel's teams and its launch
+
+SCORE_NS = (1, 31, 32, 33, 583, 4097, 16384)
+
+
+def _chip_smoke():
+    """chip_smoke.py (the repo root's), for its scores edge rows and
+    comparison."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _scores_case(seed, B, n, p_sel=0.2):
+    rng = np.random.default_rng(seed)
+    return (_cuda(rng.normal(size=(B, n))),
+            _cuda(rng.random((B, n)) + 0.05),
+            torch.from_numpy(rng.random((B, n)) < p_sel).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n", [(252, n) for n in SCORE_NS]
+                         + [(70000, 33), (70000, 583), (1, 583)])
+def test_scores_argmax_kernel_team_widths(B, n):
+    """The scores kernel at every team width its plan gives (rows of 1 to
+    16384 columns: one warp, wider teams, several passes) and at batches
+    past 65535 (the grid is one-dimensional): scores equal to the plain
+    version's, the same argmax, one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.greedy_scores import ops as gops
+    from repro_torch.kernels.greedy_scores import ref as gref
+    args = _scores_case(n + B, B, n)
+    n0 = gops.scores_argmax.launches
+    s, idx = gops.scores_argmax(*args, 3.0)
+    want, widx = gref.reference_scores(*args, 3.0)
+    torch.cuda.synchronize()
+    assert gops.scores_argmax.launches == n0 + 1
+    assert torch.equal(s, want) and torch.equal(idx, widx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", SCORE_NS)
+def test_scores_argmax_kernel_edge_rows(n):
+    """Every column selected; NaN first, mid-row and last; +0/-0 ties;
+    diag + lam = 0; equal top scores across lanes, warps, teams and
+    passes; rows of -inf: scores equal but for NaN's payload, and the same
+    argmax as the plain version in every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.greedy_scores import ops as gops
+    from repro_torch.kernels.greedy_scores import ref as gref
+    cs = _chip_smoke()
+    args = [torch.from_numpy(a).cuda() for a in cs.scores_edge_rows(n)]
+    s, idx = gops.scores_argmax(*args, 3.0)
+    want, widx = gref.reference_scores(*args, 3.0)
+    torch.cuda.synchronize()
+    assert cs.same_scores(s, want)
+    assert torch.equal(idx, widx)
+
+
+@pytest.mark.gpu
+def test_scores_argmax_survives_cuda_graph_replay():
+    """One call captured in a CUDA graph and replayed three times on fresh
+    inputs copied into the captured tensors: each replay bit-equal to an
+    eager call (the plan is fixed at capture; the kernel keeps nothing
+    between launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.greedy_scores import ops as gops
+    held = _scores_case(50, 252, 583)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gops.scores_argmax(*held, 3.0)  # build and load outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s, idx = gops.scores_argmax(*held, 3.0)
+    for seed in (51, 52, 53):
+        fresh = _scores_case(seed, 252, 583)
+        for dst, src in zip(held, fresh):
+            dst.copy_(src)
+        graph.replay()
+        want_s, want_idx = gops.scores_argmax(*fresh, 3.0)
+        torch.cuda.synchronize()
+        assert torch.equal(s, want_s) and torch.equal(idx, want_idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("writer", ["matmul", "elementwise"])
+def test_scores_argmax_sees_corr_written_just_before(writer):
+    """A kernel rewrites corr immediately before each call on the same
+    stream (a long matmul into it, or an elementwise op), as the residual
+    correlation does in GreedyTL's loop: every call reads the new values
+    (no read of the scores kernel may run ahead of the kernel before
+    it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.greedy_scores import ops as gops
+    from repro_torch.kernels.greedy_scores import ref as gref
+    B, n, K = 252, 583, 4096
+    rng = np.random.default_rng(60)
+    corr, diag, sel = _scores_case(61, B, n)
+    A = _cuda(rng.normal(size=(B, K)) / np.sqrt(K))
+    W = _cuda(rng.normal(size=(K, n)))
+    outs = []
+    for i in range(12):
+        if writer == "matmul":
+            torch.matmul(A * (i + 1), W, out=corr)
+        else:
+            torch.mul(A[:, i:i + 1], W[i], out=corr)
+        s, idx = gops.scores_argmax(corr, diag, sel, 3.0)
+        outs.append((corr.clone(), s, idx))
+    for c, s, idx in outs:
+        want, widx = gref.reference_scores(c, diag, sel, 3.0)
+        torch.cuda.synchronize()
+        assert torch.equal(s, want) and torch.equal(idx, widx)
+
+
+@pytest.mark.gpu
+def test_scores_argmax_two_streams_at_once():
+    """Launches on two streams that run at the same time, many times over,
+    each on its own inputs: every output matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.greedy_scores import ops as gops
+    from repro_torch.kernels.greedy_scores import ref as gref
+    cases = [_scores_case(70, 252, 583), _scores_case(71, 12, 4097)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+    outs = [[], []]
+    for _ in range(50):
+        for i, (s, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                outs[i].append(gops.scores_argmax(*args, 3.0))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    for args, got in zip(cases, outs):
+        want, widx = gref.reference_scores(*args, 3.0)
+        torch.cuda.synchronize()
+        for s, idx in got:
+            assert torch.equal(s, want) and torch.equal(idx, widx)
+
+
+@pytest.mark.gpu
+def test_scores_argmax_empty_batch_on_the_card():
+    """B = 0: empty outputs of the right shapes and types, as on the CPU,
+    and no launch (CUDA refuses a grid of no CTAs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.greedy_scores import ops as gops
+    corr, diag, sel = _scores_case(80, 0, 583)
+    n0 = gops.scores_argmax.launches
+    s, idx = gops.scores_argmax(corr, diag, sel, 3.0)
+    torch.cuda.synchronize()
+    assert gops.scores_argmax.launches == n0
+    assert s.shape == (0, 583) and s.dtype == torch.float32 and s.is_cuda
+    assert idx.shape == (0,) and idx.dtype == torch.int32 and idx.is_cuda
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("team,cols,per_cta", [(48, 4, 1), (32, 5, 1),
+                                               (32, 8, 9), (256, 4, 2),
+                                               (64, 8, 0)])
+def test_scores_argmax_launch_refuses_a_bad_plan(team, cols, per_cta):
+    """The launch function refuses a team or a column count it is not
+    built for and a CTA of more than 256 threads, and the wrapper's check
+    raises on its code: no launch error is swallowed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.greedy_scores import ops as gops
+    corr, diag, sel = _scores_case(81, 4, 33)
+    s = torch.empty_like(corr)
+    idx = torch.empty(4, dtype=torch.int32, device="cuda")
+    lib = gops._lib()
+    rc = lib.greedy_scores_argmax_launch(
+        corr.data_ptr(), diag.data_ptr(), sel.data_ptr(), s.data_ptr(),
+        idx.data_ptr(), 4, 33, 3.0, team, cols, per_cta,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="scores_argmax kernel launch"):
+        gops._raise_on(lib, rc, "scores_argmax")
