@@ -42,7 +42,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    registers and spills), and each route's wall-clock with a
    stage breakdown and the device's busy share from a torch.profiler
    trace;
-7. the no-cache prefill (``make_prefill_step``) of full-width qwen3_0_6b,
+7. the paper's other studies at the full HAPT size, each on both routes
+   (launch counts from 0 against 1 Gram and kappa scores launches per fit,
+   the plain-version spy on the cuda route, wall-clock per route):
+   ``run_scenario(corrupt_fn=...)`` with malicious1 and malicious2 at 0.5
+   (the corrupted models drawn once and given to both routes; every pick
+   equal, the F rows as check_f_rows holds them, mu-GTL beside noHTL_mu);
+   ``run_dynamic_gtl`` and ``run_dynamic_nohtl`` at s = 1 (21 phases) and
+   s = 4 (5 phases, one location dropped), with every phase's picks
+   equal, the totems within 1e-4 and the F trace per phase; ``run_gtl``
+   with 4 bags of 128 rows (bags shared by the routes); both kernels'
+   times at these shapes; and ``python -m repro_torch.launch.train --arch
+   gtl_paper`` in a subprocess, which must exit 0;
+8. the no-cache prefill (``make_prefill_step``) of full-width qwen3_0_6b,
    zamba2_2_7b and rwkv6_7b (random bf16 weights from a seed; B=2,
    S=2048): flash attention and the chunked GLA scan held against their
    plain versions (bf16 and fp32; head_dim 64/80/128, GQA, window, chunk
@@ -628,7 +640,7 @@ def learning_breakdown(card, kernel, kappa=64, lam=3.0):
                      lambda: gtl.train_base_models(X, y, mask, k))
 
         def stats():
-            H = gtl.source_margins(X, base)
+            H = gtl.source_margins(X, gtl.received_sets(base, base))
             Y = bl.onehot_pm(y, k) * mask[..., None, :]
             Z, _ = greedytl.build_design(X[:, None], H, mask[:, None])
             return greedytl.gram_stats(Z, Y, mask[:, None].expand(Y.shape),
@@ -666,6 +678,52 @@ def learning_breakdown(card, kernel, kappa=64, lam=3.0):
           f"{1e3 * wall:.1f} ms (profiler on), {busy}")
 
 
+def two_routes(card, label, fn, expect):
+    """fn(kernel) on the cuda route with both kernels' counts from 0 and a
+    spy that fails on any call of their plain versions, then on the torch
+    route (no launch allowed); prints the launch counts against `expect`
+    ((gram, scores_argmax)) and each route's wall-clock.  Returns
+    (cuda result, torch result, {route: seconds})."""
+    import torch
+    from repro_torch.kernels.greedy_scores import ops as gops
+    from repro_torch.kernels.greedy_scores import ref as gref
+    plain_calls = []
+    real = gref.reference_gram, gref.reference_scores
+
+    def spy(fn):
+        def call(*a, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+    secs = {}
+    gref.reference_gram, gref.reference_scores = map(spy, real)
+    gops.gram.launches = gops.scores_argmax.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_c = fn("cuda")
+        torch.cuda.synchronize()
+        secs["cuda"] = time.perf_counter() - t0
+    finally:
+        gref.reference_gram, gref.reference_scores = real
+    launches = (gops.gram.launches, gops.scores_argmax.launches)
+    print(f"{label} kernel=cuda: launches gram {launches[0]}, scores_argmax "
+          f"{launches[1]} (expected {expect[0]}, {expect[1]}); plain "
+          f"versions called: {len(plain_calls)}")
+    if launches != tuple(expect) or plain_calls:
+        raise AssertionError(f"{label}: the cuda route did not run through "
+                             f"both kernels alone, as often as expected")
+    t0 = time.perf_counter()
+    out_t = fn("torch")
+    torch.cuda.synchronize()
+    secs["torch"] = time.perf_counter() - t0
+    if (gops.gram.launches, gops.scores_argmax.launches) != launches:
+        raise AssertionError(f"{label}: kernel='torch' launched a kernel")
+    print(f"{label} wall-clock [{card}]: kernel=cuda {secs['cuda']:.3f} s, "
+          f"kernel=torch {secs['torch']:.3f} s")
+    return out_c, out_t, secs
+
+
 def learning_phase(card, gen):
     """Phase 6: the paper's framework at the full HAPT size through both
     kernels; returns their entries of the kernels line."""
@@ -685,38 +743,12 @@ def learning_phase(card, gen):
         edge_ns=(1, 31, 32, 33, n, 4097, 16384))
 
     # the main path: counts from 0, and no plain version may run on it
-    plain_calls = []
-    real = gref.reference_gram, gref.reference_scores
-
-    def spy(fn):
-        def call(*a, **kw):
-            plain_calls.append(fn.__name__)
-            return fn(*a, **kw)
-        return call
-    gref.reference_gram, gref.reference_scores = map(spy, real)
-    gops.gram.launches = gops.scores_argmax.launches = 0
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res_c = run_scenario("hapt", kernel="cuda", device="cuda")
-        torch.cuda.synchronize()
-        secs_c = time.perf_counter() - t0
-    finally:
-        gref.reference_gram, gref.reference_scores = real
-    launches = {"gram": gops.gram.launches,
-                "scores_argmax": gops.scores_argmax.launches}
-    kappa = res_c.gtl.gtl_selected.shape[-1]
-    print(f"learning path kernel=cuda: run_scenario('hapt') launches "
-          f"{launches} (expected gram 1, scores_argmax {kappa}); plain "
-          f"versions called: {len(plain_calls)}")
-    if min(launches.values()) == 0 or plain_calls:
-        raise AssertionError("the learning path did not run through both "
-                             "kernels alone")
-
-    res_t = run_scenario("hapt", kernel="torch", device="cuda")
-    if (gops.gram.launches, gops.scores_argmax.launches) != tuple(
-            launches.values()):
-        raise AssertionError("kernel='torch' launched a kernel")
+    kappa = 64
+    res_c, res_t, secs = two_routes(
+        card, "learning path run_scenario('hapt')",
+        lambda kernel: run_scenario("hapt", kernel=kernel, device="cuda"),
+        (1, kappa))
+    launches = {"gram": 1, "scores_argmax": kappa}
     diverged = check_selections(res_c, res_t, 3.0)
     from repro_torch.core.experiment import make_scenario
     _, (_, yte), _ = make_scenario("hapt", 0, device="cuda")
@@ -728,7 +760,7 @@ def learning_phase(card, gen):
           f"gains {o.gains()}")
 
     # wall-clock per route, in turns (the first runs above include warm-up)
-    walls = {"cuda": [secs_c], "torch": []}
+    walls = {route: [t] for route, t in secs.items()}
     for route in ("torch", "cuda", "cuda", "torch"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -791,6 +823,169 @@ def learning_phase(card, gen):
          "max_abs_err": scores_err, "ms": s_ms, "plain_ms": s_plain,
          "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
     ]
+
+# ------------------------------------------- the paper's other studies
+
+# the tolerance the CPU tests hold the totem to (tests/test_torch_dynamic.py)
+TOTEM_TOL = 1e-4
+# bagged GreedyTL: bags of 128 of a location's 365 rows (paper Section 3:
+# GreedyTL on small random subsamples of a large local dataset)
+N_BAGS, BAG_SIZE = 4, 128
+
+
+def same_picks(label, sel_c, sel_t):
+    """Every GreedyTL pick of every problem equal across the routes."""
+    import torch
+    differ = int((sel_c != sel_t).any(-1).sum())
+    print(f"{label}: {sel_c.numel() // sel_c.shape[-1]} problems x "
+          f"{sel_c.shape[-1]} picks; {differ} problems differ between the "
+          f"routes")
+    if not torch.equal(sel_c, sel_t):
+        raise AssertionError(f"{label}: the routes picked different columns")
+
+
+def studies_phase(card):
+    """Phase 7: the paper's malicious-device (Section 7) and dynamic
+    (Section 10) studies, bagged GreedyTL and the gtl_paper launcher at the
+    full HAPT size, each on both routes."""
+    import torch
+    from repro_torch.core import corruption, dynamic, greedytl, gtl
+    from repro_torch.core.experiment import make_scenario, run_scenario
+    from repro_torch.training import metrics as M
+    kappa = 64
+    shards, (Xte, yte), spec = make_scenario("hapt", 0, device="cuda")
+    k, L = spec.n_classes, spec.n_locations
+
+    # Section 7: the corrupted models drawn once (from the cuda route's
+    # honest models) and handed to both routes, GTL and noHTL alike
+    for i, (kind, corrupt) in enumerate((
+            ("malicious1", lambda g, m: corruption.corrupt_malicious1(
+                g, m, 0.5)[0]),
+            ("malicious2", lambda g, m: corruption.corrupt_malicious2(
+                g, m, 0.5)))):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        drawn = []
+
+        def corrupt_fn(models, corrupt=corrupt, gen=gen, drawn=drawn):
+            if not drawn:
+                drawn[:] = [models, corrupt(gen, models)]
+            drawn.append(torch.equal(models.W, drawn[0].W)
+                         and torch.equal(models.b, drawn[0].b))
+            return drawn[1]
+        res_c, res_t, _ = two_routes(
+            card, f"Section 7 {kind} 0.5 run_scenario('hapt')",
+            lambda kernel: run_scenario("hapt", corrupt_fn=corrupt_fn,
+                                        kernel=kernel, device="cuda"),
+            (1, kappa))
+        changed = (drawn[1].W != drawn[0].W).float()
+        print(f"  {kind}: share of parameters replaced "
+              f"{float(changed.mean()):.4f}, locations whose model changed "
+              f"{int(changed.flatten(1).amax(1).sum())} of {L}; honest "
+              f"models bit-equal at every call: {all(drawn[2:])}")
+        same_picks(f"  {kind} GreedyTL selections", res_c.gtl.gtl_selected,
+                   res_t.gtl.gtl_selected)
+        check_f_rows(res_c, res_t, yte, k)
+        print(f"  {kind} at 0.5 [{card}]: mu-GTL(4) {res_c.f_gtl4_mu:.6f} "
+              f"against noHTL_mu {res_c.f_nohtl_mu:.6f} (mv-GTL(4) "
+              f"{res_c.f_gtl4_mv:.6f}, noHTL_mv {res_c.f_nohtl_mv:.6f}, "
+              f"Cloud {res_c.f_cloud:.6f})")
+
+    # Section 10: arrivals in phases around the totem
+    def f_of(model):
+        return float(M.f_measure(yte, gtl.predict_linear(model, Xte), k))
+    for s in (1, 4):
+        n_ph = L // s
+        (tr_c, f_c), (tr_t, f_t), _ = two_routes(
+            card, f"Section 10 run_dynamic_gtl s={s} ({n_ph} phases)",
+            lambda kernel: dynamic.run_dynamic_gtl(
+                shards, k, s, kappa=kappa, eval_fn=f_of, kernel=kernel,
+                device="cuda"), (n_ph, n_ph * kappa))
+        same_picks(f"  s={s} GreedyTL selections, every phase", tr_c.selected,
+                   tr_t.selected)
+        gap = float((tr_c.models - tr_t.models).abs().max())
+        print(f"  s={s} totem: max |cuda - torch| over the phases {gap:.3g} "
+              f"(tol {TOTEM_TOL}); locations dropped as a tail: {L % s}")
+        if gap > TOTEM_TOL:
+            raise AssertionError(f"s={s}: the routes' totems disagree")
+        (nt, f_n), _, _ = two_routes(
+            card, f"Section 10 run_dynamic_nohtl s={s}",
+            lambda kernel: dynamic.run_dynamic_nohtl(
+                shards, k, s, eval_fn=f_of, device="cuda"), (0, 0))
+        print(f"  s={s} F per phase (GTL cuda / GTL torch / noHTL):")
+        for p in range(n_ph):
+            print(f"    phase {p + 1:2d}: {f_c[p]:.6f} / {f_t[p]:.6f} / "
+                  f"{f_n[p]:.6f}")
+
+    # bagged GreedyTL: the bags drawn once, shared by both routes
+    mask = torch.as_tensor(shards.mask, device="cuda")
+    rows = greedytl.draw_bag_rows(torch.Generator(device="cuda").manual_seed(
+        5), mask, N_BAGS, BAG_SIZE)
+    res_c, res_t, _ = two_routes(
+        card, f"bagged run_gtl (n_bags={N_BAGS}, bag_size={BAG_SIZE}: "
+              f"{L * N_BAGS * k} problems of {BAG_SIZE} rows)",
+        lambda kernel: gtl.run_gtl(shards, k, kappa=kappa, n_bags=N_BAGS,
+                                   bag_size=BAG_SIZE, bag_rows=rows,
+                                   kernel=kernel, device="cuda"), (1, kappa))
+    same_picks("  bagged, bag 0's GreedyTL selections", res_c.gtl_selected,
+               res_t.gtl_selected)
+    support = torch.equal(res_c.gtl_coef != 0, res_t.gtl_coef != 0)
+    nnz = float((res_c.gtl_coef != 0).sum(-1).float().mean())
+    gap = float((res_c.gtl_coef - res_t.gtl_coef).abs().max())
+    print(f"  bagged: supports of the bags' mean equal across routes "
+          f"{support} (mean nonzeros per problem {nnz:.1f} of {kappa} picks "
+          f"a bag); max |coef cuda - torch| {gap:.3g}; mu-GTL(4) F "
+          f"{f_of(res_c.consensus_flat):.6f} / "
+          f"{f_of(res_t.consensus_flat):.6f}")
+    if not support:
+        raise AssertionError("bagged: the routes' supports differ")
+
+    # both kernels timed at these studies' shapes (CUDA-graph replay): a
+    # dynamic phase's s * k problems of m = 365 rows against L_src = s or
+    # s + 1 sources, and the bagged fit's problems of BAG_SIZE rows
+    from repro_torch.kernels.greedy_scores import ops as gops
+    from repro_torch.kernels.greedy_scores import ref as gref
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    m = shards.X.shape[1]
+    d1 = shards.X.shape[-1] + 1
+    for what, B, m_rows, n in (("s=1 first phase", k, m, d1 + 1),
+                               ("s=1 later phases", k, m, d1 + 2),
+                               ("s=4 first phase", 4 * k, m, d1 + 4),
+                               ("s=4 later phases", 4 * k, m, d1 + 5),
+                               ("bagged", L * N_BAGS * k, BAG_SIZE, d1 + L)):
+        Z = torch.randn(B, m_rows, n, generator=gen,
+                        device="cuda") / m_rows ** 0.5
+        g_ms = time_ms(lambda: gops.gram(Z), iters=5, reps=4)
+        g_plain = time_ms(lambda: gref.reference_gram(Z), iters=5, reps=4)
+        Zt = Z.mT
+        g_lib = time_ms(lambda: torch.bmm(Zt, Z), iters=5, reps=4)
+        g_bound, g_by = gram_bound_ms(B, m_rows, n)
+        corr = torch.randn(B, n, generator=gen, device="cuda")
+        diag = torch.rand(B, n, generator=gen, device="cuda") + 0.05
+        sel = torch.rand(B, n, generator=gen, device="cuda") < 32 / n
+        s_ms = time_ms(lambda: gops.scores_argmax(corr, diag, sel, 3.0))
+        s_plain = time_ms(lambda: gref.reference_scores(corr, diag, sel, 3.0))
+        s_bound, s_by = scores_bound_ms(B, n)
+        print(f"{what} shapes [{card}]: gram (B={B}, m={m_rows}, n={n}) "
+              f"kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, torch.bmm "
+              f"{g_lib:.4f} ms, bound {g_bound:.5f} ms ({g_by}); "
+              f"scores_argmax (B={B}, n={n}) kernel {s_ms:.4f} ms, plain "
+              f"{s_plain:.4f} ms, bound {s_bound:.6f} ms ({s_by})")
+
+    # the launcher, as the README starts the reproduction
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "gtl_paper"], cwd=HERE, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    print(f"python -m repro_torch.launch.train --arch gtl_paper: rc "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    for line in proc.stdout.splitlines():
+        print(f"  | {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+        raise AssertionError("the gtl_paper launcher failed")
+
 
 # ---------------------------------------------------------------- prefill
 
@@ -1219,7 +1414,7 @@ def _widen(tree):
 
 
 def prefill_phase(card, gen):
-    """Phase 7: the no-cache prefill of three architectures at full width
+    """Phase 8: the no-cache prefill of three architectures at full width
     through both kernels; returns their entries of the kernels line."""
     import torch
     from repro_torch.configs import get_config
@@ -1556,7 +1751,10 @@ def main() -> int:
     # 6. the paper's learning framework
     learning = learning_phase(card, gen)
 
-    # 7. the no-cache prefill of three architectures
+    # 7. its malicious, dynamic and bagged studies and the launcher
+    studies_phase(card)
+
+    # 8. the no-cache prefill of three architectures
     del params
     torch.cuda.empty_cache()
     prefill = prefill_phase(card, gen)

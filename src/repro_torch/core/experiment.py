@@ -96,12 +96,12 @@ def make_scenario(name: str, seed: int = 0, n_samples: int | None = None,
 
 def run_scenario(name: str, seed: int = 0, n_samples: int | None = None,
                  kappa: int = 64, lam: float = 3.0, svm_steps: int = 600,
-                 raw_dims=None, kernel: str = "cuda",
+                 corrupt_fn=None, raw_dims=None, kernel: str = "cuda",
                  device="cuda") -> ScenarioResult:
     shards, test, spec = make_scenario(name, seed, n_samples, device)
     return run_scenario_on(
         shards, test, spec.n_classes, name=name, kappa=kappa, lam=lam,
-        svm_steps=svm_steps,
+        svm_steps=svm_steps, corrupt_fn=corrupt_fn,
         n_samples=spec.n_samples if n_samples is None else n_samples,
         d_point=spec.n_features,
         d_raw=raw_dims if raw_dims is not None else
@@ -111,13 +111,15 @@ def run_scenario(name: str, seed: int = 0, n_samples: int | None = None,
 
 def run_scenario_on(shards, test, k: int, *, name: str = "custom",
                     kappa: int = 64, lam: float = 3.0, svm_steps: int = 600,
-                    n_samples: int | None = None, d_point: int | None = None,
-                    d_raw: int | None = None, kernel: str = "cuda",
-                    device="cuda") -> ScenarioResult:
+                    corrupt_fn=None, n_samples: int | None = None,
+                    d_point: int | None = None, d_raw: int | None = None,
+                    kernel: str = "cuda", device="cuda") -> ScenarioResult:
     """The study on given `LocationShards` and test set (numpy arrays or
-    tensors).  `n_samples` and `d_point` size the Cloud overhead (the
-    nominal dataset; default: the rows and width given); `d_raw` the raw
-    one (none by default)."""
+    tensors).  `corrupt_fn(models) -> models` (if given) corrupts the
+    models GTL and noHTL exchange (Section 7); the local F and the
+    overhead stay on the honest base models.  `n_samples` and `d_point`
+    size the Cloud overhead (the nominal dataset; default: the rows and
+    width given); `d_raw` the raw one (none by default)."""
     with bl.fp32_matmuls():
         Xte = torch.as_tensor(test[0], device=device)
         yte = torch.as_tensor(test[1], device=device)
@@ -131,8 +133,8 @@ def run_scenario_on(shards, test, k: int, *, name: str = "custom",
 
         # --- GTL
         res = gtl_mod.run_gtl(shards, k, kappa=kappa, lam=lam,
-                              svm_steps=svm_steps, kernel=kernel,
-                              device=device)
+                              svm_steps=svm_steps, corrupt_fn=corrupt_fn,
+                              kernel=kernel, device=device)
         aug0 = res.base.augmented()  # honest local models, (L, k, d+1)
         f_local = M.f_measure(yte, gtl_mod.predict_linear(aug0, Xte), k)
         f_gtl2 = M.f_measure(yte, gtl_mod.predict_linear(res.gtl_flat, Xte),
@@ -144,7 +146,7 @@ def run_scenario_on(shards, test, k: int, *, name: str = "custom",
 
         # --- noHTL
         nres = nohtl_mod.run_nohtl(shards, k, svm_steps=svm_steps,
-                                   device=device)
+                                   corrupt_fn=corrupt_fn, device=device)
         pred_nohtl_mu = nohtl_mod.predict_consensus(nres, Xte)
         f_nohtl_mu = float(M.f_measure(yte, pred_nohtl_mu, k))
         f_nohtl_mv = float(M.f_measure(

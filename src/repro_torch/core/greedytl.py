@@ -26,8 +26,7 @@ and scores + picks every candidate with the scores kernel
 (``kernels/greedy_scores``; on CPU tensors those wrappers run their plain
 versions); ``"torch"`` is the plain path.  The residual correlation and
 the ridge solve are PyTorch ops on both routes, as they are JAX ops outside
-any Pallas call in the reference.  ``greedytl_fit_bagged`` waits for a
-later slice.
+any Pallas call in the reference.
 """
 from __future__ import annotations
 
@@ -210,6 +209,56 @@ def greedytl_fit_multiclass(X, Y_onehot_pm, H_src_per_class, kappa: int,
     mask = None if sample_mask is None else sample_mask[..., None, :]
     return greedytl_fit(X[..., None, :, :], Y_onehot_pm, H_src_per_class,
                         kappa, lam, mask, kernel)
+
+
+def greedytl_fit_bagged_rows(X, Y_onehot_pm, H_src_per_class, bag_rows,
+                             kappa: int, lam: float, kernel: str = "cuda"):
+    """The paper's big-dataset workaround (Section 3, last paragraph) on
+    given bags: one-vs-all GreedyTL on each bag of rows, the bags' models
+    averaged.
+
+    X: (..., m, d); Y_onehot_pm: (..., k, m); H_src_per_class: (..., k, m,
+    L); bag_rows: (..., n_bags, bag_size) int row indices into m.  Every
+    bag of every leading index is one problem of a single batched fit (one
+    Gram launch over ... * n_bags * k problems of bag_size rows), with no
+    sample mask inside a bag, as in the reference.  The reductions are the
+    reference's: coef is the mean over the bags (so generally denser than
+    kappa), selected is bag 0's, n_selected the max over the bags.
+    """
+    rows = bag_rows.long()
+    Xb = torch.take_along_dim(X[..., None, :, :], rows[..., None], -2)
+    Yb = torch.take_along_dim(Y_onehot_pm[..., None, :, :],
+                              rows[..., None, :], -1)
+    Hb = torch.take_along_dim(H_src_per_class[..., None, :, :, :],
+                              rows[..., None, :, None], -2)
+    mdl = greedytl_fit_multiclass(Xb, Yb, Hb, kappa, lam, kernel=kernel)
+    return GreedyTLModel(coef=mdl.coef.mean(-3),
+                         selected=mdl.selected.select(-3, 0),
+                         n_selected=mdl.n_selected.amax(-2))
+
+
+def draw_bag_rows(generator, sample_mask, n_bags: int, bag_size: int):
+    """(..., n_bags, bag_size) row indices drawn with replacement, with
+    probability proportional to sample_mask (..., m), as the reference
+    draws each bag (``jax.random.choice(..., replace=True, p=mask /
+    sum(mask))``; the streams differ)."""
+    p = sample_mask.reshape(-1, sample_mask.shape[-1]).float()
+    idx = torch.multinomial(p, n_bags * bag_size, replacement=True,
+                            generator=generator)
+    return idx.reshape(sample_mask.shape[:-1] + (n_bags, bag_size))
+
+
+def greedytl_fit_bagged(generator, X, Y_onehot_pm, H_src_per_class,
+                        kappa: int, lam: float, n_bags: int, bag_size: int,
+                        sample_mask=None, kernel: str = "cuda"):
+    """greedytl_fit_bagged_rows on bags drawn from `generator` (a
+    torch.Generator on X's device) with probability proportional to
+    sample_mask (all rows by default)."""
+    if sample_mask is None:
+        sample_mask = torch.ones(X.shape[:-1], dtype=X.dtype, device=X.device)
+    rows = draw_bag_rows(generator, sample_mask, n_bags, bag_size)
+    return greedytl_fit_bagged_rows(X, Y_onehot_pm, H_src_per_class, rows,
+                                    kappa, lam, kernel)
 
 
 def predict_margins(coef, X, H_src_per_class):

@@ -16,14 +16,16 @@ a (k, d+1) linear model in feature space:
 
     h(x) = w^T [x;1] + sum_i beta_i (W_i [x;1]) = (w + sum_i beta_i W_i)^T [x;1]
 
-`flatten_gtl` performs that collapse; consensus and evaluation operate on
-the flattened form, while the overhead accounting uses the sparse
-(w, beta) form actually sent on the wire.
+`flatten_gtl` performs that collapse; consensus, EMA merging (dynamic
+scenario, ``core/dynamic.py``) and evaluation operate on the flattened
+form, while the overhead accounting uses the sparse (w, beta) form actually
+sent on the wire.
 
-Waiting for later slices: the corrupted exchanges of Section 7
-(``corrupt_fn``, ``core/corruption.py``) and bagged GreedyTL (``n_bags``).
-Without corruption every location's received set already holds its own
-honest model in its own slot, so Algorithm 1 line 8 needs no substitution.
+The exchanged models may be corrupted (Section 7, ``corrupt_fn``,
+``core/corruption.py``); each location still puts its own honest model in
+its own slot of the received set (Algorithm 1 line 8, ``received_sets``),
+so with ``own`` given every location fits and collapses against its own
+set.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ class StackedLinear(NamedTuple):
 
 class GTLResult(NamedTuple):
     base: StackedLinear          # h^(0) per location
-    sources: StackedLinear       # what each location *received*
+    sources: StackedLinear       # what was exchanged (may be corrupted)
     gtl_coef: torch.Tensor       # (L, k, n) sparse GreedyTL coefficients, n=d+1+L
     gtl_flat: torch.Tensor       # (L, k, d+1) flattened h^(2)
     consensus_flat: torch.Tensor  # (k, d+1) flattened mu-GTL h^(4)
@@ -84,37 +86,93 @@ def train_base_models(shards_X, shards_y, shards_mask, k: int,
 
 def source_margins(X, sources: StackedLinear):
     """(..., k, m, L): margin of source model l, class c, on each row of X
-    (..., m, d)."""
-    marg = torch.einsum("...md,lkd->...kml", X, sources.W)
-    return marg + sources.b.T[:, None, :]
+    (..., m, d).  The sources are shared (W (L, k, d)) or one set per
+    leading index (W (..., L, k, d), as ``received_sets`` gives)."""
+    marg = torch.einsum("...md,...lkd->...kml", X, sources.W)
+    return marg + sources.b.mT[..., :, None, :]
+
+
+def received_sets(sources: StackedLinear, own: StackedLinear):
+    """Algorithm 1 line 8 (H_src <- H_src U {h_own}): location l's source
+    set is `sources` with slot l replaced by own[l], for every location l
+    of `own`.  Returns a StackedLinear of W (L, L_src, k, d), b (L, L_src,
+    k)."""
+    L = own.W.shape[0]
+    at = torch.arange(L, device=own.W.device)
+    W = sources.W.expand((L,) + sources.W.shape).clone()
+    b = sources.b.expand((L,) + sources.b.shape).clone()
+    W[at, at] = own.W
+    b[at, at] = own.b
+    return StackedLinear(W, b)
+
+
+def _bag_rows(mask, n_bags, bag_size, generator, bag_rows):
+    """The bags' row indices (L, n_bags, bag_size): `bag_rows` as given, or
+    drawn from `generator`; None without bagging."""
+    if n_bags <= 0:
+        if bag_rows is not None:
+            raise ValueError("bag_rows needs n_bags > 0")
+        return None
+    if bag_rows is None:
+        if generator is None:
+            raise ValueError("bagged GreedyTL draws its rows from a "
+                             "torch.Generator: pass generator= or bag_rows=")
+        return gtl_solver.draw_bag_rows(generator, mask, n_bags, bag_size)
+    want = mask.shape[:-1] + (n_bags, bag_size)
+    if tuple(bag_rows.shape) != want:
+        raise ValueError(f"bag_rows must have shape {want}; got "
+                         f"{tuple(bag_rows.shape)}")
+    m = mask.shape[-1]
+    if bag_rows.numel() and not 0 <= int(bag_rows.min()) <= int(
+            bag_rows.max()) < m:
+        raise ValueError(f"bag_rows must index the {m} rows of a shard")
+    return bag_rows.to(mask.device)
 
 
 def gtl_step2_all(shards_X, shards_y, shards_mask, sources: StackedLinear,
-                  k: int, kappa: int, lam: float, kernel: str = "cuda"):
+                  k: int, kappa: int, lam: float, kernel: str = "cuda", *,
+                  n_bags: int = 0, bag_size: int = 0, generator=None,
+                  bag_rows=None, own: StackedLinear | None = None):
     """Step 2 at every location: one batched GreedyTL fit over all
-    (location, class) problems.
+    (location, class) problems, or with bagging (``n_bags`` > 0) over all
+    (location, bag, class) problems.
+
+    `sources` are the models received over the network (possibly
+    corrupted, Section 7); `own` are the honest local models, and where
+    given each location's slot of `sources` is replaced by its own
+    (``received_sets``).  Bags of `bag_size` rows come from `bag_rows`
+    (L, n_bags, bag_size) or are drawn from `generator`.
 
     Returns (model, flat): the GreedyTLModel (coef (L, k, n), selected
-    (L, k, kappa)), n = d+1+L, and flat (L, k, d+1), the exact linear
-    collapse of each location's h^(2) against the source set.
+    (L, k, kappa)), n = d+1+L_src, and flat (L, k, d+1), the exact linear
+    collapse of each location's h^(2) against its source set.
     """
-    H = source_margins(shards_X, sources)                       # (L, k, m, L)
-    Y = bl.onehot_pm(shards_y, k) * shards_mask[..., None, :]   # (L, k, m)
-    mdl = gtl_solver.greedytl_fit_multiclass(
-        shards_X, Y, H, kappa, lam, sample_mask=shards_mask, kernel=kernel)
+    if own is not None:
+        sources = received_sets(sources, own)
+    H = source_margins(shards_X, sources)                     # (L, k, m, L_src)
+    Y = bl.onehot_pm(shards_y, k) * shards_mask[..., None, :]  # (L, k, m)
+    rows = _bag_rows(shards_mask, n_bags, bag_size, generator, bag_rows)
+    if rows is None:
+        mdl = gtl_solver.greedytl_fit_multiclass(
+            shards_X, Y, H, kappa, lam, sample_mask=shards_mask,
+            kernel=kernel)
+    else:
+        mdl = gtl_solver.greedytl_fit_bagged_rows(
+            shards_X, Y, H, rows, kappa, lam, kernel=kernel)
     return mdl, flatten_gtl(mdl.coef, sources)
 
 
 def flatten_gtl(coef, sources: StackedLinear):
     """Collapse h^(2) = (w, beta) + linear sources into (k, d+1) weights.
 
-    coef: (k, n) or (L, k, n) with n = d+1+L_src.
+    coef: (k, n) or (L, k, n) with n = d+1+L_src; sources shared or one set
+    per location, as in ``source_margins``.
     """
     d1 = sources.W.shape[-1] + 1
     omega = coef[..., :d1]            # (..., k, d+1)
     beta = coef[..., d1:]             # (..., k, L_src)
-    aug = sources.augmented()         # (L_src, k, d+1)
-    transfer = torch.einsum("...kl,lke->...ke", beta, aug)
+    aug = sources.augmented()         # (..., L_src, k, d+1)
+    transfer = torch.einsum("...kl,...lke->...ke", beta, aug)
     return omega + transfer
 
 
@@ -123,15 +181,25 @@ def flatten_gtl(coef, sources: StackedLinear):
 
 def run_gtl(shards, k: int, kappa: int = 64, lam: float = 3.0,
             svm_lam: float = 1e-4, svm_lr: float = 0.01, svm_steps: int = 600,
-            kernel: str = "cuda", device="cuda") -> GTLResult:
-    """Full Algorithm 1 on `LocationShards`, on `device`."""
+            n_bags: int = 0, bag_size: int = 0, generator=None,
+            bag_rows=None, corrupt_fn=None, kernel: str = "cuda",
+            device="cuda") -> GTLResult:
+    """Full Algorithm 1 on `LocationShards`, on `device`.
+    `corrupt_fn(models) -> models` (if given) corrupts the *exchanged* base
+    models at Step 1 (Section 7); each location still includes its own
+    honest model in its slot of the received set.  Bagging as in
+    ``gtl_step2_all``."""
     with bl.fp32_matmuls():
         X, y, mask = shard_tensors(shards, device)
         base = train_base_models(X, y, mask, k, lam=svm_lam, lr=svm_lr,
                                  steps=svm_steps)
-        mdl, flat = gtl_step2_all(X, y, mask, base, k, kappa, lam, kernel)
+        sources = corrupt_fn(base) if corrupt_fn is not None else base
+        mdl, flat = gtl_step2_all(X, y, mask, sources, k, kappa, lam, kernel,
+                                  n_bags=n_bags, bag_size=bag_size,
+                                  generator=generator, bag_rows=bag_rows,
+                                  own=base)
         consensus = consensus_mean(flat)           # (k, d+1) == mu-GTL^(4)
-    return GTLResult(base=base, sources=base, gtl_coef=mdl.coef,
+    return GTLResult(base=base, sources=sources, gtl_coef=mdl.coef,
                      gtl_flat=flat, consensus_flat=consensus,
                      gtl_selected=mdl.selected)
 

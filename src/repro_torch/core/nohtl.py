@@ -24,18 +24,24 @@ from repro_torch.core.gtl import (StackedLinear, predict_linear,
 
 class NoHTLResult(NamedTuple):
     base: StackedLinear           # h^(0) per location
-    sources: StackedLinear        # what was exchanged
+    sources: StackedLinear        # what was exchanged (may be corrupted)
     consensus_flat: torch.Tensor  # (k, d+1) mean model (noHTL_mu)
 
 
 def run_nohtl(shards, k: int, svm_lam: float = 1e-4, svm_lr: float = 0.01,
-              svm_steps: int = 600, device="cuda") -> NoHTLResult:
+              svm_steps: int = 600, corrupt_fn=None,
+              device="cuda") -> NoHTLResult:
+    """Algorithm 2 on `LocationShards`, on `device`.  `corrupt_fn(models)
+    -> models` (if given) corrupts the exchanged base models (Section 7):
+    the collector's mean and the majority vote run over what was
+    exchanged."""
     with bl.fp32_matmuls():
         X, y, mask = shard_tensors(shards, device)
         base = train_base_models(X, y, mask, k, lam=svm_lam, lr=svm_lr,
                                  steps=svm_steps)
-        consensus = consensus_mean(base.augmented())  # (k, d+1)
-    return NoHTLResult(base=base, sources=base, consensus_flat=consensus)
+        sources = corrupt_fn(base) if corrupt_fn is not None else base
+        consensus = consensus_mean(sources.augmented())  # (k, d+1)
+    return NoHTLResult(base=base, sources=sources, consensus_flat=consensus)
 
 
 def predict_consensus(result: NoHTLResult, X):

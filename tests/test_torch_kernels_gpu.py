@@ -893,3 +893,70 @@ def test_scores_argmax_launch_refuses_a_bad_plan(team, cols, per_cta):
     assert rc != 0
     with pytest.raises(RuntimeError, match="scores_argmax kernel launch"):
         gops._raise_on(lib, rc, "scores_argmax")
+
+
+# ------------------------- the paper's malicious, dynamic and bagged studies
+
+# (B, m, n) of the Gram launches of these studies at the HAPT size: a dynamic
+# phase's s * k problems of 365 rows against s (first phase) or s + 1
+# sources (s = 1 and 4), and the bagged fit's 21 * 4 * 12 problems of 128
+# rows against 21 sources
+STUDY_SHAPES = [(12, 365, 563), (12, 365, 564), (48, 365, 566),
+                (48, 365, 567), (1008, 128, 583)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,m,n", STUDY_SHAPES)
+def test_greedy_kernels_at_study_shapes(B, m, n):
+    """Both GreedyTL kernels against their plain versions at the dynamic
+    and bagged studies' shapes: G within 1e-5 on a unit-scale design and
+    bit-symmetric; scores within one ulp and the same argmax per row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.greedy_scores import ops as gops
+    from repro_torch.kernels.greedy_scores import ref as gref
+    rng = np.random.default_rng(B * n)
+    Z = _cuda(rng.normal(size=(B, m, n)) / np.sqrt(m))
+    G = gops.gram(Z)
+    torch.testing.assert_close(G, gref.reference_gram(Z), rtol=0, atol=1e-5)
+    assert torch.equal(G, G.mT)
+    corr = _cuda(rng.normal(size=(B, n)))
+    diag = _cuda(rng.random((B, n)) + 0.05)
+    sel = torch.from_numpy(rng.random((B, n)) < 0.05).cuda()
+    s, idx = gops.scores_argmax(corr, diag, sel, 3.0)
+    want, widx = gref.reference_scores(corr, diag, sel, 3.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, want, rtol=2.4e-7, atol=0)
+    assert torch.equal(idx, widx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["malicious1", "malicious2"])
+def test_corrupted_gtl_routes_pick_the_same_columns(kind):
+    """run_gtl on a reduced HAPT scenario with half the exchange corrupted
+    (the same corrupted tensors on both routes): kernel="cuda" launches
+    the Gram kernel once and the scores kernel kappa times, and picks the
+    columns kernel="torch" picks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import corruption, gtl
+    from repro_torch.core.experiment import make_scenario
+    from repro_torch.kernels.greedy_scores import ops as gops
+    shards, _, _ = make_scenario("hapt", 0, 2000, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    drawn = []
+
+    def corrupt_fn(models):
+        if not drawn:
+            drawn.append(corruption.corrupt_malicious1(gen, models, 0.5)[0]
+                         if kind == "malicious1" else
+                         corruption.corrupt_malicious2(gen, models, 0.5))
+        return drawn[0]
+    kw = dict(kappa=8, svm_steps=50, corrupt_fn=corrupt_fn, device="cuda")
+    g0, s0 = gops.gram.launches, gops.scores_argmax.launches
+    got = gtl.run_gtl(shards, 12, kernel="cuda", **kw)
+    assert (gops.gram.launches - g0, gops.scores_argmax.launches - s0) \
+        == (1, 8)
+    want = gtl.run_gtl(shards, 12, kernel="torch", **kw)
+    assert torch.equal(got.sources.W, want.sources.W)
+    assert torch.equal(got.gtl_selected, want.gtl_selected)
